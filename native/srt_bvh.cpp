@@ -1,12 +1,11 @@
 // srt_bvh: binned-SAH BVH8 builder (host, C++).
 //
-// The TPU-native replacement for what Embree's rtcCommitScene gives
-// the reference for free (scene.cpp:101-107): a surface-area-heuristic
-// tree. Round 1 used an implicit Morton-median 8-ary heap built
-// on-device; its equal-size subtree constraint produces overlapping
-// children on uneven scenes (measured ~85-visit unions for coherent
-// 128-ray packets on sponza_proc). This builder produces an
-// explicit-pointer 8-wide tree:
+// The analog of what Embree's rtcCommitScene gives the reference for
+// free (scene.cpp:101-107): a surface-area-heuristic tree. The
+// renderers walk an implicit Morton-median 8-ary heap (ops/wbvh.py),
+// whose equal-size subtree constraint produces overlapping children
+// on uneven scenes. This build produces an explicit-pointer 8-wide
+// tree, kept for a walk that reads it (not wired to the renderers):
 //
 //   1. top-down binary binned SAH (16 bins, all 3 axes swept and the
 //      cheapest (axis, bin) split taken — round-3: the largest-extent-
@@ -18,13 +17,13 @@
 //      splits that DUPLICATE straddling references, clipping the
 //      triangle polygon to each side. Large architectural triangles
 //      (sponza floors/walls) stop inflating child boxes, shrinking
-//      the packet visit union the TPU kernel pays. Reference count
+//      the boxes a traversal visits. Reference count
 //      is budgeted (max_ref_factor x n); when the budget runs out
 //      the build degrades gracefully to pure object splits,
 //   2. collapse to 8-wide by a dynamic program that minimizes the
-//      total surface area of wide-node roots (round 3). On the TPU
-//      packet kernel a wide-node visit costs ~1 unit no matter how
-//      many of its 8 slots are full, and binary leaves are immutable
+//      total surface area of wide-node roots (round 3). Taking a
+//      wide-node visit to cost ~1 unit no matter how many of its 8
+//      slots are full, and since binary leaves are immutable
 //      (leaf-drain count is partition-independent), so expected node
 //      visits ~ sum over wide nodes W of P(ray hits W's box) ~
 //      sum A(W). The DP (the cost shape of Ylitie et al. 2017's
@@ -35,14 +34,13 @@
 //        g(leaf, i) = 0;  g(n, 1) = f(n)
 //        g(n, i) = min(f(n), min_{i1+i2=i} g(l,i1) + g(r,i2))
 //        f(n) = A(n) + min_{i1+i2=8} g(l,i1) + g(r,i2)
-//      (round 2 expanded the largest-area child greedily; the DP is
-//      measured vs it by tools/kernel_ab.py),
+//      (round 2 expanded the largest-area child greedily),
 //   3. emit component-major children rows [NI, 48] + child ids
 //      [NI, 8] + leaf order [L*K] (original triangle ids, -1 pad).
 //
-// Child id encoding matches ops/traverse_pallas2.py: internal child =
-// its row index; leaf child = NI + leaf_row; empty slot = id 0 with a
-// point-at-infinity box (never hit, never visited).
+// Child id encoding: internal child = its row index; leaf child =
+// NI + leaf_row; empty slot = id 0 with a point-at-infinity box (never
+// hit, never visited).
 //
 // Exposed via a C ABI consumed with ctypes (ops/sah.py).
 
@@ -83,7 +81,7 @@ struct Box {
     return 2.0f * (dx * dy + dy * dz + dz * dx);
   }
   // Minkowski-dilated area: the area seen by a ray PACKET of spatial
-  // spread s rather than a point ray (round-5 VERDICT #7 — the
+  // spread s rather than a point ray (the
   // traversal cost model is packet-union visits, and a packet of
   // cross-section s "hits" a box enlarged by s on every side).
   float area_dilated(float s) const {
@@ -168,9 +166,8 @@ struct Builder {
   const float* tv = nullptr;  // [n, 3, 3]
   int64_t n = 0;
   int32_t k = 8;              // leaf capacity
-  int32_t w = 8;              // wide-node fanout (8 in production;
-                              // parameterized for tree-shape probes,
-                              // tools/probe_tree_width.py)
+  int32_t w = 8;              // wide-node fanout (8 by default;
+                              // parameterized for tree-shape probes)
   float spatial_alpha = 0.0f;  // 0 = object splits only
   float collapse_dilate = 0.0f;  // packet-spread margin for the
                                  // union-weighted DP objective
@@ -591,8 +588,8 @@ int64_t srt_bvh_ni(void* h) {
   return (int64_t)(b->child_ids.size() / b->w);
 }
 
-// Probe-only variant (tools/probe_tree_width.py): wide-node fanout as
-// a parameter. Production stays 8-wide (srt_bvh_build/build2).
+// Probe variant: wide-node fanout as a parameter. The default builds
+// stay 8-wide (srt_bvh_build/build2).
 void* srt_bvh_build3(const float* tri_v, int64_t n, int32_t leaf_size,
                      int32_t width) {
   auto* b = new Builder();
@@ -606,7 +603,7 @@ void* srt_bvh_build3(const float* tri_v, int64_t n, int32_t leaf_size,
 
 int32_t srt_bvh_width(void* h) { return ((Builder*)h)->w; }
 
-// Union-weighted collapse (round-5 VERDICT #7): the DP minimizes the
+// Union-weighted collapse: the DP minimizes the
 // sum of PACKET-DILATED wide-root areas — area of each box enlarged
 // by `dilate` (world units, the captured packet spatial spread) —
 // instead of point-ray areas. dilate = 0 reproduces srt_bvh_build.

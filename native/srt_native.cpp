@@ -1,16 +1,15 @@
 // srt_native: native ingest core for sycl_ray_tracer_tpu.
 //
 // The reference's data loader is C++ (tiny_gltf + nlohmann/json,
-// scene.cpp:54-510). This is its native equivalent for the TPU
+// scene.cpp:54-510). This is its native equivalent for this
 // framework: GLB container parsing, a minimal JSON DOM, glTF accessor
 // decoding, node-hierarchy flattening with baked world transforms and
 // normal matrices (transpose(inverse(upper3x3))), scene.cpp:502), and
 // reference-rule material classification (scene.cpp:188-254). Exposed
 // through a C ABI consumed via ctypes (no pybind11 in this image).
 //
-// Texture *decoding* stays in Python/PIL by design: image codecs are
-// not worth vendoring; the native side hands back the raw embedded
-// PNG/JPEG bytes.
+// Texture *decoding* stays in Python by design (utils/image_io.py): the
+// native side hands back the raw embedded image bytes.
 //
 // No code is shared with or derived from the reference; JSON parsing
 // is a from-scratch recursive-descent parser over the GLB JSON chunk.

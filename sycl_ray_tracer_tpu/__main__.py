@@ -1,13 +1,3 @@
-import os
-
-# Select the backend before any package import can touch JAX (a site
-# plugin may pin jax_platforms via config, which outranks JAX_PLATFORMS).
-_plat = os.environ.get("SRT_PLATFORM")
-if _plat:
-    import jax
-
-    jax.config.update("jax_platforms", _plat)
-
-from sycl_ray_tracer_tpu.utils.cli import main  # noqa: E402
+from sycl_ray_tracer_tpu.utils.cli import main
 
 raise SystemExit(main())

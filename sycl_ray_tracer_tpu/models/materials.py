@@ -59,8 +59,7 @@ def sample_texture(scene, tex: jnp.ndarray,
     (bytes / 255, no sRGB decode). Lanes with tex < 0 get garbage here
     and are masked by the caller. The gather pulls ONE packed uint32
     per lane (scene.tex_packed) — bit-identical to the [R, 4] uint8
-    row gather but a quarter of the moved bytes and no row-width
-    relayout (gather economics, PLAN_TPU.md).
+    row gather but a quarter of the moved bytes.
     """
     res = scene.tex_res
     x = jnp.floor(u * res).astype(jnp.int32) % res
@@ -78,11 +77,10 @@ def sample_texture(scene, tex: jnp.ndarray,
 
 def albedo_lanes(scene, mat: MatLanes, u, v) -> V3:
     solid = mat.albedo
-    # Static specialization: textureless scenes skip the atlas gather
-    # entirely — an [R] random-access gather costs ~65 ns/row on v5e
-    # regardless of how little it reads. has_textures is a build-time
+    # Static specialization: textureless scenes skip the [R] random-
+    # access atlas gather entirely. has_textures is a build-time
     # static field (the loaders always emit a >=1-entry dummy atlas,
-    # so a size check alone would never fire — round-2 advisor).
+    # so a size check alone would never fire).
     if not getattr(scene, "has_textures", True):
         return solid
     tex = sample_texture(scene, mat.tex, u, v)

@@ -2,7 +2,7 @@
 
 Parity target: render_megakernel.cpp:20-63, 75-187. The reference runs
 an 8x8-workgroup SYCL kernel with per-thread sample and bounce loops;
-the TPU-native shape is one traced program over all pixels at once —
+here it is one traced program over all pixels at once —
 XLA fuses camera gen, traversal step, and shading into large vector
 ops, and the sample loop is a lax.fori_loop carrying the accumulator.
 
@@ -78,19 +78,12 @@ def _sample_one(scene, cam: Camera, px, py, lane, sample_idx, seed,
     """Render one sample for every listed pixel; returns (color V3,
     updated per-bounce ray tallies).
 
-    Round-3 TPU optimizations (VERDICT #5), both estimator-neutral:
-    - bounce 0 is PEELED out of the while_loop so its traversal can
-      statically select the coherent-primary kernel config (the
-      while_loop body must compile ONE intersect, so the flag can't
-      vary inside it);
-    - with sort_every=k > 0, live lanes are coherence-re-sorted (and
-      dead lanes pushed to the packet tail) every k bounces: the
-      megakernel analog of wavefront compaction. A permutation never
-      changes any lane's RNG stream or arithmetic (key/orig ride
-      along; results scatter back by orig), so images are
-      bit-identical to the unsorted megakernel. Dead-lane packets
-      cost ~2 kernel visits, so sorting recovers most of
-      compaction's benefit without shrinking the queue.
+    Bounce 0 runs before the while_loop. With sort_every=k > 0, live
+    lanes are coherence-re-sorted (and dead lanes pushed to the tail)
+    every k bounces: the megakernel analog of wavefront compaction. A
+    permutation never changes any lane's RNG stream or arithmetic
+    (key/orig ride along; results scatter back by orig), so images are
+    bit-identical to the unsorted megakernel.
     """
     key = _rng.make_key(
         _rng.make_key(jnp.asarray(seed, jnp.uint32),
@@ -107,22 +100,18 @@ def _sample_one(scene, cam: Camera, px, py, lane, sample_idx, seed,
     )
     orig = jnp.arange(r, dtype=jnp.int32)
 
-    # ---- bounce 0 peeled: primary-tuned kernel config ----
+    # ---- bounce 0 ----
     if max_depth >= 1:
         rays = rays.at[0].add(jnp.sum((~state.done).astype(jnp.int32)))
         state = _trace.trace_step(scene, state, key, 2,  # ctr 0,1=jitter
-                                  rr=rr, bounce_idx=0, primary=True)
+                                  rr=rr, bounce_idx=0)
 
     # Never-permuted key array: resort re-gathers each lane's key from
-    # it by orig as a plain uint32 take. The key must NOT ride
-    # _compact's packed take — that bitcasts int columns to f32, and
-    # XLA:TPU canonicalizes NaN bit patterns in transit (measured,
-    # trace.py _permute_packed); pcg2d keys are uniform uint32, so
-    # ~2^-8 of lanes per sort would silently switch (and collide on
-    # 0x7FC00000) RNG streams. Small ints (orig, done) are safe: their
-    # bitcasts are denormal/low-normal patterns, which data movement
-    # preserves (the wavefront has shipped q_id this way from round 1
-    # with oracle-exact results).
+    # it by orig as a plain uint32 take. The key does not ride
+    # _compact's packed take, which bitcasts int columns to f32: a
+    # uniform uint32 key can be a NaN pattern, which a float copy may
+    # canonicalize. Small ints (orig, done) are denormal or low normal
+    # patterns, which data movement preserves.
     key0 = key
 
     def resort(st, key, orig):
@@ -160,9 +149,6 @@ def _sample_one(scene, cam: Camera, px, py, lane, sample_idx, seed,
 
 
 # Pixel-chunk size (chunks run sequentially via lax.map past this).
-# Large chunks win: per-bounce-iteration cost is dominated by fixed
-# kernel-scheduling overhead, so lanes are nearly free until
-# multi-million sizes.
 CHUNK = 1 << 20
 
 
@@ -219,9 +205,8 @@ def _wave_frame(scene, cam: Camera, seed, sample_offset, *, width: int,
     global ray-id scheme as wavefront._gen_queue). Per-lane RNG keys
     depend only on (seed, absolute sample index, pixel), so any wave
     partition of spp produces bit-identical samples; the wave's results
-    reduce over the sample axis before returning. Round 1 ran one
-    program per sample (VERDICT: megakernel never got wave batching);
-    batching amortizes the fixed per-bounce program overhead."""
+    reduce over the sample axis before returning. Batching amortizes
+    the fixed per-bounce program overhead."""
     n = width * height
     lane = jnp.arange(waves * n, dtype=jnp.uint32)
     pix = lane % jnp.uint32(n)  # linear ray id, camera.hpp:120-122
@@ -302,9 +287,9 @@ def _chunk_first_body(scene, cam: Camera, seed, sample_idx0, pix0,
                       max_depth: int, waves: int, rr: bool,
                       sort_every: int, final: bool = False):
     """Unjitted wave bring-up + bounces [0, i_hi): camera rays,
-    per-lane keys, the peeled primary-config bounce 0, then the chunk
-    loop. Parameterized on a GLOBAL pixel offset (pix0) and absolute
-    sample offset (sample_idx0) so the sharded host loop
+    per-lane keys, bounce 0, then the chunk loop. Parameterized on a
+    GLOBAL pixel offset (pix0) and absolute sample offset
+    (sample_idx0) so the sharded host loop
     (parallel/mesh.py) can run this same core per shard with
     shard-local pixel/sample slices while every (global pixel,
     absolute sample) draws the single-chip key stream. Returns
@@ -328,10 +313,9 @@ def _chunk_first_body(scene, cam: Camera, seed, sample_idx0, pix0,
     orig = jnp.arange(r, dtype=jnp.int32)
     rays = jnp.zeros((max_depth,), jnp.int32)
 
-    # peeled bounce 0: static primary-tuned kernel config
+    # bounce 0
     rays = rays.at[0].add(r)
-    st = _trace.trace_step(scene, st, key0, 2, rr=rr, bounce_idx=0,
-                           primary=True)
+    st = _trace.trace_step(scene, st, key0, 2, rr=rr, bounce_idx=0)
     key = key0
     if sort_every or not final:
         # the i=1 cadence sort (any sort_every >= 1 sorts pre-step 1);
@@ -395,20 +379,15 @@ def _chunked_wave(scene, cam: Camera, seed, s, w, *, width: int,
                   sort_every: int):
     """One wave of the bounce-chunked megakernel (SRT_MK_CHUNK=k).
 
-    The fused engine's structural cost on TPU is that a traced
-    while_loop has static shapes: shade/sort rows stay at full wave
-    width while the live count decays, which is why the unchunked
-    matrix rows fall off with depth (512^2 sponza_proc s128: 2.81 at
-    d10 -> 0.91 at d50 while wavefront holds 3.5+). Chunking runs k
-    fused bounce iterations per device program and shrinks the queue
-    to the live-count bucket between programs — the TPU analog of the
-    reference SIMT megakernel's dead threads retiring inside one
-    kernel launch (render_megakernel.cpp:75-187). Estimator-exact:
-    images are bit-identical to the unchunked engine (permutations +
-    per-lane result slots; see _chunk_loop/_scatter_results), and the
-    host sees one scalar per chunk instead of wavefront's one per
-    bounce. Shorter programs also sit further under the runtime
-    watchdog that a deep unchunked wave can hit (CLAUDE.md).
+    A traced while_loop has static shapes: shade/sort rows stay at
+    full wave width while the live count decays. Chunking runs k fused
+    bounce iterations per device program and shrinks the queue to the
+    live-count bucket between programs -- the analog of the reference
+    SIMT megakernel's dead threads retiring inside one kernel launch
+    (render_megakernel.cpp:75-187). Estimator-exact: images are
+    bit-identical to the unchunked engine (permutations + per-lane
+    result slots; see _chunk_loop/_scatter_results), and the host sees
+    one scalar per chunk instead of wavefront's one per bounce.
 
     Returns (linear accumulator [n, 3] summed over the wave's samples,
     per-bounce ray tallies)."""
@@ -438,53 +417,29 @@ def _chunked_wave(scene, cam: Camera, seed, s, w, *, width: int,
     return jnp.stack(res, axis=-1).reshape(w, n, 3).sum(axis=0), rays
 
 
-def mk_cadence(scene, max_depth: int) -> Tuple[int, int, int]:
-    """(chunk, sort_every, tl_chain) cadence policy — shared by the
-    single-chip driver and the sharded host loop (parallel/mesh.py) so
-    the two cannot drift.
+# Cadence defaults for every backend (see mk_cadence): chunk=2,
+# sort_every=2 won the A/B at sponza_proc 1024^2 spp8 d10 on an H100
+# against chunk/sort off and chunk=3/sort=1 (CHANGES.md).
+MK_CHUNK = 2
+MK_SORT = 2
 
-    Per-bounce coherence re-sort (see _sample_one): pays on the TPU
-    packet kernel (the sort is the same argsort+packed-take as
-    wavefront compaction); the CPU/XLA traversal gains nothing, so
-    default off there. SRT_MK_SORT=k sorts every k bounces (0=off).
-    Cadence sweep (tools/tune_mk_cadence.py, PLAN_TPU round-3
-    facts): every bounce wins through d30 (3.10 vs 2.95 at chunk3)
-    but every-2 wins at d50 (2.79 vs 2.50 at chunk4) — late-bounce
-    survival is high, so re-sorting barely shrinks-reorders anything
-    and the argsort+take is pure cost. Crossover measured between
-    d30 and d50; the default flips past the verified-shallow bound.
-    Treelet scenes (tl_count > 1) take the deep-depth cadence at ALL
-    depths: the 512^2 matrix showed minecraft_proc JUMPING 2.29 ->
-    2.54 Mrays/s from d30 (chunk3/sort1) to d40 (chunk2/sort2) —
-    deeper depth, higher rate — because every chained treelet pass
-    repeats the dead-lane tax, so the tighter reslicing pays
-    tl_count times while the extra sorts amortize over tl_count
-    kernel passes (measured A/B at d10 s128: 2.45 -> 2.73, +11%;
-    d20 2.34 -> 2.62, d30 2.29 -> 2.58 — PLAN_TPU round-3 facts).
 
-    Bounce-chunked mode (see _chunked_wave): k fused bounce
-    iterations per program, queue shrunk to the live bucket between
-    programs. Default on TPU; SRT_MK_CHUNK=0 disables. Smaller chunks
-    won the cadence sweep monotonically (d10: c3 3.51 > c2 3.44 > c4
-    3.39 > c6 3.14 > c8 2.97; d50 at sort2: c2 2.87 > c3 2.81 > c4
-    2.79 > c6 2.66): reslicing the queue more often beats fusing more
-    bounces per program, and at deep depth the shrink compounds
-    enough that chunk=2 overtakes 3. Treelet scenes take chunk=2 at
-    all depths.
-    """
+def mk_cadence() -> Tuple[int, int]:
+    """(chunk, sort_every) cadence policy -- shared by the one-device
+    render loop and the sharded host loop (parallel/mesh.py) so the two
+    cannot drift.
+
+    sort_every=k > 0 coherence-re-sorts live lanes every k bounces (see
+    _sample_one); chunk=k > 0 runs the bounce-chunked engine, k fused
+    bounces per program with the queue shrunk to the live bucket
+    between programs (see _chunked_wave). Both are estimator-exact.
+    SRT_MK_SORT / SRT_MK_CHUNK override the defaults (MK_SORT,
+    MK_CHUNK) for every depth."""
     import os
 
-    tl_chain = max(1, getattr(scene, "tl_count", 0) or 1)
-    if jax.default_backend() == "tpu":
-        shallow = max_depth <= 30 and tl_chain == 1
-        default_sort = 1 if shallow else 2
-        default_chunk = 3 if shallow else 2
-    else:
-        default_sort = 0
-        default_chunk = 0
-    sort_every = int(os.environ.get("SRT_MK_SORT", str(default_sort)))
-    chunk = int(os.environ.get("SRT_MK_CHUNK", str(default_chunk)))
-    return chunk, sort_every, tl_chain
+    sort_every = int(os.environ.get("SRT_MK_SORT", str(MK_SORT)))
+    chunk = int(os.environ.get("SRT_MK_CHUNK", str(MK_CHUNK)))
+    return chunk, sort_every
 
 
 def render_megakernel(scene, cam: Camera, *, width: int, height: int,
@@ -501,41 +456,23 @@ def render_megakernel(scene, cam: Camera, *, width: int, height: int,
     import os
 
     wave_rays = int(os.environ.get("SRT_WAVE_RAYS", str(8 << 20)))
-    chunk, sort_every, tl_chain = mk_cadence(scene, max_depth)
+    chunk, sort_every = mk_cadence()
     n = width * height
-    # The megakernel runs lanes x max_depth bounce iterations in ONE
-    # device program; this box's runtime kills multi-minute single
-    # executions (watchdog -> UNAVAILABLE + worker crash, observed at
-    # 512^2 x 30 waves x depth 40). Cap lane-bounces per program so
-    # deep-depth configs split into more, shorter waves.
-    lane_bounces = int(os.environ.get("SRT_MK_LANE_BOUNCES",
-                                      str(64 << 20)))
-    # Treelet scenes chain tl_count kernel passes per bounce inside
-    # the same program, so a lane-bounce there costs ~tl_count times a
-    # single-tree one. The round-3 512^2 sweep hung the remote worker
-    # on exactly this: minecraft_proc (4 treelets) at d30 hit the
-    # watchdog at the 64M cap calibrated on single-tree scenes.
-    lane_bounces //= tl_chain
     # max_depth=0 renders black with zero rays (the reference's loop
     # never runs) — only the plain engine expresses that, so the
     # chunked path requires at least one bounce.
     if chunk > 0 and max_depth >= 1:
-        bounces_per_program = min(chunk, max_depth)
-
         def per_wave(s, w):
             return _chunked_wave(scene, cam, seed, s, w, width=width,
                                  height=height, max_depth=max_depth,
                                  rr=rr, chunk=chunk,
                                  sort_every=sort_every)
     else:
-        bounces_per_program = max_depth
-
         def per_wave(s, w):
             return _wave_frame(scene, cam, seed, s, width=width,
                                height=height, max_depth=max_depth,
                                waves=w, rr=rr, sort_every=sort_every)
-    waves = max(1, min(spp, wave_rays // n,
-                       lane_bounces // max(n * bounces_per_program, 1)))
+    waves = max(1, min(spp, wave_rays // n))
     specs = []
     s = 0
     while s < spp:
@@ -543,9 +480,8 @@ def render_megakernel(scene, cam: Camera, *, width: int, height: int,
         specs.append((s, w))
         s += w
     # The chunked megakernel blocks on one `int(live)` scalar per
-    # chunk program; interleaving a second wave's programs fills that
-    # gap (see wavefront.interleave_waves for the RPC rationale and
-    # the bit-identity argument).
+    # chunk program; interleaving a second wave's programs may fill
+    # that gap (see wavefront.interleave_waves).
     from sycl_ray_tracer_tpu.models.wavefront import interleave_waves
     results = interleave_waves(per_wave, specs)
     accum = None

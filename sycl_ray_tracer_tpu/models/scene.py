@@ -14,37 +14,34 @@ The binary LBVH (ops/lbvh.py) remains available for cross-validation.
 
 from __future__ import annotations
 
+import dataclasses
+import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from sycl_ray_tracer_tpu.ops import wbvh
 from sycl_ray_tracer_tpu.utils.gltf import HostScene, load_glb
 
 DEFAULT_LEAF_SIZE = 8
+# "auto" = the CUDA kernel on a GPU, the XLA walk elsewhere; "xla" and
+# "cuda" force one of the two WBVH8 walks; "lbvh" = binary LBVH
+# (ops/traverse.py), an independent cross-check (models/trace.py).
+INTERSECTORS = ("auto", "xla", "cuda", "lbvh")
 
 
-@struct.dataclass
+def _static(default):
+    return dataclasses.field(default=default, metadata=dict(static=True))
+
+
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class DeviceScene:
-    # WBVH8 (ops/wbvh.py): unified node table — internal rows pack the
+    # WBVH8 (ops/wbvh.py): unified node table -- internal rows pack the
     # 8 children AABBs, leaf rows pack K triangles, component-major.
-    bvh_nodes: jnp.ndarray  # [NI + L, max(48, 9K)] (XLA traversal)
-    # Split tables for the v1 Pallas kernel (leaves = real rows only).
-    bvh_children: jnp.ndarray  # [NI, 48]
-    bvh_leaves: jnp.ndarray    # [ceil(N/K), 9K]
-    # Sublane-major tile tables for the v2 Pallas kernel
-    # (wbvh.pack_tiles_np / ops/traverse_pallas2.py). When has_sah,
-    # these hold the binned-SAH BVH8 (ops/sah.py, native builder) and
-    # bvh_remap translates its hit slots to Morton-slot space.
-    bvh_ctiles: jnp.ndarray    # [ceil(NI/16), 8, 128]
-    bvh_ltiles: jnp.ndarray    # [ceil(L/8), 8, 128]
-    # Woop transform tiles for the v8 batched-MXU leaf drain
-    # (ops/woop.py, ops/traverse_pallas8.py): 2 leaves per tile,
-    # 256 B/tri. Dummy [1, 8, 128] when has_wtiles is False (CPU
-    # backend, oversized scenes, or SRT_MXU_DRAIN=0).
-    bvh_wtiles: jnp.ndarray    # [ceil(L/2), 8, 128]
-    bvh_remap: jnp.ndarray     # [L_sah*K] int32 sah slot -> morton slot
+    # Both GPU walks (the CUDA kernel and the XLA traverse8) read it.
+    bvh_nodes: jnp.ndarray  # [NI + L, max(48, 9K)]
     # Binary LBVH (ops/lbvh.py + ops/traverse.py) as an independently
     # selectable intersector (intersector="lbvh"): the cross-check
     # path used by the Sponza-scale convergence gate. Dummy [1, 3]
@@ -55,30 +52,11 @@ class DeviceScene:
     lbvh_v0: jnp.ndarray       # [LK, 3] or dummy
     lbvh_e1: jnp.ndarray       # [LK, 3] or dummy
     lbvh_e2: jnp.ndarray       # [LK, 3] or dummy
-    # Treelet tables for scenes past the single-tree VMEM limit
-    # (ops/treelets.py): one kernel pass per treelet, chained via
-    # t_init. [1,...]-shaped dummies when tl_count == 0.
-    tl_ctiles: jnp.ndarray     # [T, NT, 8, 128]
-    tl_ltiles: jnp.ndarray     # [T, LT, 8, 128]
-    tl_remap: jnp.ndarray      # [T, S] int32
-    tl_lo: jnp.ndarray         # [T, 3]
-    tl_hi: jnp.ndarray         # [T, 3]
-    # Shading data in sorted leaf order, padded to L*K rows.
-    tri_n: jnp.ndarray     # [LK, 3, 3] unit shading normals (world)
-    tri_uv: jnp.ndarray    # [LK, 3, 2]
-    tri_mat: jnp.ndarray   # [LK] int32
-    # Packed shading table, ROW-major (triangle-major): the per-ray
-    # GEOMETRY a bounce's shading gather needs in ONE row take.
-    # Measured round 3 (tools/probe_shade_gather.py): row takes run at
-    # 37-70 Mrows/s vs the round-2 lane-axis layout's 23-31 — 2.2x at
-    # every production bucket size. The [R, W] result IS lane-padded to
-    # 128 by XLA (the round-2 OOM hazard at 16M), so shade_lanes takes
-    # in <=2M-row chunks. Material CONSTANTS are deliberately NOT baked
-    # per-triangle here: tools/probe_shade_variants.py measured the
-    # 16-wide geometry take + 10 tiny [M]-table takes keyed by the
-    # gathered mat id at 37.3 vs 32.2 Mrows/s for the 25-wide bake at
-    # 8M rays (the [M] takes are cache-resident; the wide take pays per
-    # component). Cols: 0-8 normals, 9-14 uv, 15 mat id.
+    # Packed shading table, row-major (triangle-major) in sorted leaf
+    # order, padded to L*K rows: the per-ray geometry a bounce's
+    # shading gather needs in ONE row take. Material constants stay in
+    # the small [M] tables below, taken by the gathered material id.
+    # Cols: 0-8 unit vertex normals, 9-14 uv, 15 material id.
     shade_tbl: jnp.ndarray  # [LK, 16] float32
     # Material table (SoA tagged union; utils/gltf.py classification)
     mat_type: jnp.ndarray      # [M] int32 (0 diffuse, 1 metallic, 2 dielectric)
@@ -89,70 +67,71 @@ class DeviceScene:
     mat_emissive: jnp.ndarray  # [M, 3]
     # Texture atlas (nearest/repeat sampling; image_manager.hpp parity),
     # texels packed RGBA into one uint32 each: the per-bounce atlas
-    # sample is then ONE [R] single-lane gather + vector bit unpack
-    # instead of an [R, 4] row gather (gather cost is per row and grows
-    # with row width relayouts; PLAN_TPU.md). The host's uint8
-    # [T, 512, 512, 4] atlas stays host-side — shipping it too would
-    # double the atlas HBM (and per-shard copies) for zero device reads.
+    # sample is ONE [R] gather plus a bit unpack. The host's uint8
+    # [T, 512, 512, 4] atlas stays host-side.
     tex_packed: jnp.ndarray    # [T*512*512] uint32
     sky_color: jnp.ndarray     # [3]
     scene_lo: jnp.ndarray      # [3] world bounds (for ray-sort Morton keys)
     scene_hi: jnp.ndarray      # [3]
-    # Static config
-    # "auto" = WBVH8 tables (Pallas kernel on TPU, XLA twin on CPU);
-    # "lbvh" = binary LBVH via ops/traverse.py (independent
-    # cross-check). Static field: part of every jit cache key, so
-    # switching intersectors retraces instead of reusing stale code.
-    intersector: str = struct.field(pytree_node=False, default="auto")
-    # node-tile format consumed by the v5 kernel: "f32" (8 lanes/node)
-    # or "bf16p" (4 lanes/node, packed conservative bf16 boxes)
-    cfmt: str = struct.field(pytree_node=False, default="f32")
-    tl_count: int = struct.field(pytree_node=False, default=0)
-    tl_ni: int = struct.field(pytree_node=False, default=1)
-    has_tiles: bool = struct.field(pytree_node=False, default=False)
-    # True iff any material references a texture. Build-time static so
-    # textureless scenes statically skip the per-bounce atlas gather
-    # (the [T,512,512,4] dummy atlas the HostScene contract always
-    # emits means textures.shape[0] is never 0 — round-2 advisor).
-    has_textures: bool = struct.field(pytree_node=False, default=True)
+    # Static fields: part of every jit cache key, so switching e.g. the
+    # intersector retraces instead of reusing stale code.
+    intersector: str = _static("auto")
+    # True iff any material references a texture: textureless scenes
+    # statically skip the per-bounce atlas gather (the HostScene
+    # contract always emits a dummy atlas, so its size says nothing).
+    has_textures: bool = _static(True)
     # Atlas edge length in texels (tex_packed rows are tex_res^2 long)
-    tex_res: int = struct.field(pytree_node=False, default=512)
-    has_sah: bool = struct.field(pytree_node=False, default=False)
-    sah_ni: int = struct.field(pytree_node=False, default=1)
-    # True iff bvh_wtiles holds a real woop table (v8 batched-MXU
-    # drains available; scene.py gates on size + SRT_MXU_DRAIN)
-    has_wtiles: bool = struct.field(pytree_node=False, default=False)
-    # Two-level shared-BLAS instancing (models/instanced.py): leaf
-    # descriptors [Lg, 128] (shared tile slot, instance id, 12-float
-    # world->local transform) and per-instance normal matrices [I, 9].
-    # None on baked scenes; hit ids compose as inst * inst_s8 + row.
-    inst_ldesc: jnp.ndarray = None
-    inst_nmat: jnp.ndarray = None
-    # per-treelet woop tiles for v8 drains (SRT_TL_V8=1; dummy else)
-    tl_wtiles: jnp.ndarray = None
-    has_instances: bool = struct.field(pytree_node=False,
-                                       default=False)
-    inst_s8: int = struct.field(pytree_node=False, default=0)
-    # True iff tl_wtiles holds real woop tables (SRT_TL_V8 treelets)
-    tl_has_w: bool = struct.field(pytree_node=False, default=False)
-    leaf_size: int = struct.field(pytree_node=False, default=DEFAULT_LEAF_SIZE)
-    bvh_depth: int = struct.field(pytree_node=False, default=1)
-    bvh_ni: int = struct.field(pytree_node=False, default=1)
-    num_triangles: int = struct.field(pytree_node=False, default=0)
+    tex_res: int = _static(512)
+    leaf_size: int = _static(DEFAULT_LEAF_SIZE)
+    bvh_depth: int = _static(1)
+    bvh_ni: int = _static(1)
+    num_triangles: int = _static(0)
 
     @property
     def num_rows(self) -> int:
-        return self.tri_n.shape[0]
+        return self.shade_tbl.shape[0]
 
 
-def _inverse_order(order: np.ndarray, n: int) -> np.ndarray:
-    """original tri id -> canonical Morton slot (inverse of `order`,
-    skipping the -1 padding slots). One definition for the treelet and
-    SAH-remap branches so the scatter idiom can't drift."""
-    inv = np.zeros((n,), np.int32)
-    valid = order >= 0
-    inv[order[valid]] = np.nonzero(valid)[0].astype(np.int32)
-    return inv
+def scene_bytes(num_triangles: int,
+                leaf_size: int = DEFAULT_LEAF_SIZE) -> int:
+    """Device bytes of the two per-triangle tables (bvh_nodes and
+    shade_tbl), exact: both are sized by the padded heap of wbvh.plan,
+    so a scene just past a power of 8 leaves costs up to 8x."""
+    _, ni, l_leaves, width = wbvh.plan(num_triangles, leaf_size)
+    return 4 * ((ni + l_leaves) * width + l_leaves * leaf_size * 16)
+
+
+def check_scene_fits(num_triangles: int, leaf_size: int = DEFAULT_LEAF_SIZE,
+                     device=None) -> None:
+    """Pre-OOM guard: ingest bakes every glTF instance to world space
+    (utils/gltf.py), so R instances of one mesh cost R x geometry here,
+    unlike the reference's shared-BLAS instancing (scene.cpp:435-439).
+    Fail fast with the arithmetic instead of an out-of-memory error
+    mid-render when the scene tables exceed half of the accelerator's
+    memory (`bytes_limit`; the other half holds ray queues and
+    accumulators). The CPU backend has host RAM behind it and only
+    warns. SRT_MAX_SCENE_BYTES overrides the bound."""
+    need = scene_bytes(num_triangles, leaf_size)
+    device = device if device is not None else jax.devices()[0]
+    limit = os.environ.get("SRT_MAX_SCENE_BYTES")
+    if limit is not None:
+        bound = int(float(limit))
+    else:
+        stats = device.memory_stats() or {}
+        if not stats.get("bytes_limit"):
+            return
+        bound = int(stats["bytes_limit"]) // 2
+    if need <= bound:
+        return
+    msg = (f"scene has {num_triangles:,} baked world-space triangles: "
+           f"{need / 1e9:.2f} GB of device tables vs a "
+           f"{bound / 1e9:.2f} GB bound on {device.platform}. "
+           "Instancing is baked at ingest (utils/gltf.py): R glTF "
+           "instances of one mesh cost R x geometry here. Reduce "
+           "instance count/mesh density or set SRT_MAX_SCENE_BYTES.")
+    if device.platform != "cpu":
+        raise ValueError(msg)
+    print(f"# WARNING: {msg}")
 
 
 def build_device_scene(host: HostScene,
@@ -162,216 +141,28 @@ def build_device_scene(host: HostScene,
     """Upload + BVH-build a HostScene.
 
     The build runs on the HOST in numpy (wbvh.build_np: a Morton sort
-    plus reshapes — milliseconds, the analog of Embree's sub-second
-    rtcCommitScene, scene.cpp:107). Round 1 built on-device under jit;
-    nearly all of its 128 s was XLA compile time (VERDICT round 1).
-    SRT_JIT_BUILD=1 restores the jitted on-device build.
+    plus reshapes, the analog of Embree's sub-second rtcCommitScene,
+    scene.cpp:107). SRT_JIT_BUILD=1 runs the jitted on-device build
+    instead.
     """
-    import os
-
-    # Pre-OOM guard for baked instancing (round-4 VERDICT #6): ingest
-    # bakes every glTF instance to world space (utils/gltf.py), so R
-    # instances of one mesh cost R x geometry in HBM — measured
-    # 540-910 B/tri of device tables (tri_v/n/uv + shade_tbl + kernel
-    # tiles + BVH with its power-of-8 padding steps,
-    # tools/probe_instancing.py: 10k cube instances = 120K tris =
-    # 64 MB, 40k = 480K tris = 435 MB). The reference instead shares
-    # one Embree BLAS per primitive (scene.cpp:435-439), so an
-    # instance-heavy scene that is tiny there can exhaust HBM here.
-    # Fail fast with the arithmetic instead of a runtime OOM mid-
-    # render. SRT_MAX_SCENE_BYTES overrides (v5e HBM is 16 GB; leave
-    # headroom for queues/accumulators).
-    max_scene = int(float(os.environ.get("SRT_MAX_SCENE_BYTES",
-                                         8e9)))
-    # Hard-fail only on the measured LOWER bound (540 B/tri) and only
-    # where the HBM limit is real (TPU backend); scenes in the
-    # 540-910 uncertainty band, or any backend with host RAM behind
-    # it (CPU oracle/test runs), get a warning instead (round-4
-    # advisor: the worst-case estimate rejected scenes that fit).
-    est_lo = host.num_triangles * 540
-    est_hi = host.num_triangles * 910
-    if est_hi > max_scene:
-        import jax
-
-        msg = (
-            f"scene has {host.num_triangles:,} baked world-space "
-            f"triangles (~{est_lo/1e9:.1f}-{est_hi/1e9:.1f} GB of "
-            f"device tables vs the {max_scene/1e9:.1f} GB "
-            "SRT_MAX_SCENE_BYTES bound). Instancing is baked at "
-            "ingest (utils/gltf.py): R glTF instances of one mesh "
-            "cost R x geometry here, unlike the reference's "
-            "shared-BLAS instancing. Reduce instance count/mesh "
-            "density or raise SRT_MAX_SCENE_BYTES.")
-        if est_lo > max_scene and jax.default_backend() == "tpu":
-            raise ValueError(msg)
-        print(f"# WARNING: {msg}")
+    if intersector not in INTERSECTORS:
+        raise ValueError(f"unknown intersector {intersector!r}; "
+                         f"choices: {INTERSECTORS}")
+    check_scene_fits(host.num_triangles, leaf_size)
 
     depth, ni, _, _ = wbvh.plan(host.num_triangles, leaf_size)
     if os.environ.get("SRT_JIT_BUILD") == "1":
-        import jax
-
         tri_v = jnp.asarray(host.tri_v, dtype)
         bvh, sorted_v, valid = jax.jit(
             lambda t: wbvh.build(t, leaf_size))(tri_v)
         bvh = wbvh.Wbvh8(
-            nodes=np.asarray(bvh.nodes),
-            children=np.asarray(bvh.children),
-            leaves=np.asarray(bvh.leaves),
-            order=np.asarray(bvh.order),
+            nodes=np.asarray(bvh.nodes), order=np.asarray(bvh.order),
             num_internal=bvh.num_internal, depth=bvh.depth,
             leaf_size=bvh.leaf_size)
     else:
         bvh, sorted_v, valid = wbvh.build_np(host.tri_v, leaf_size)
-    from sycl_ray_tracer_tpu.ops import sah as _sah
 
     order = np.asarray(bvh.order)
-    has_tiles = leaf_size == 8 and ni + 8 ** depth < (1 << 24)
-    has_sah = False
-    sah_ni = 1
-    remap = np.zeros((1,), np.int32)
-    sahb = None
-
-    # Scenes whose single-tree tile tables exceed the VMEM budget go
-    # through treelets (ops/treelets.py) instead of the 100x-slower
-    # XLA fallback of round 1. ~44 packed bytes/tri measured at K=8.
-    from sycl_ray_tracer_tpu.ops import treelets as _tl
-
-    tl_limit = int(os.environ.get("SRT_TREELET_THRESHOLD_TRIS",
-                                  1_000_000))
-    want_treelets = (leaf_size == 8 and host.num_triangles > tl_limit
-                     and os.environ.get("SRT_NO_TREELETS") != "1")
-    tl = None
-    force_bf16 = False
-    if (want_treelets
-            and os.environ.get("SRT_FORCE_TREELETS") != "1"
-            and os.environ.get("SRT_BF16_NODES") != "0"
-            and os.environ.get("SRT_NO_SAH") != "1"
-            # v1/v2 cannot read bf16 tiles (use_bf16_nodes below), so
-            # preempting treelets for them would leave an over-VMEM
-            # f32 table and no treelets -> XLA fallback
-            and os.environ.get("SRT_KERNEL") not in ("v1", "v2")):
-        # Past the f32 single-tree VMEM ceiling, a bf16-packed node
-        # table (conservative directed rounding — results identical,
-        # half the node bytes) doubles the ceiling to ~2.2M tris.
-        # Measured round 2: bf16 single-tree runs at ~0.95x the f32
-        # in-VMEM rate, vs the 2.3-3x treelet chaining tax — so prefer
-        # it whenever it fits (minecraft_proc 2.06M tris).
-        # build_sah returns None when the native library is unavailable
-        # (ops/sah.py contract) — fall through to treelets/Morton then.
-        # Cheap preempt-the-probe bound first: num_leaves >=
-        # ceil(n / leaf_size), so lt_tiles alone lower-bounds est_bf16
-        # — scenes far past the bf16 ceiling (e.g. 5-10M tris) skip
-        # the full SAH build they would only throw away.
-        from sycl_ray_tracer_tpu.models.trace import (
-            VMEM_TABLE_LIMIT_BYTES as _VMEM_LIMIT)
-        min_leaves = -(-host.num_triangles // leaf_size)
-        min_lt_tiles = -(-min_leaves // 8)
-        if min_lt_tiles * 8 * 128 * 4 > _VMEM_LIMIT:
-            sahb = None
-        else:
-            sahb = _sah.build_sah(host.tri_v, leaf_size)
-        if sahb is not None and (
-                sahb.num_internal + sahb.num_leaves < (1 << 24)):
-            lt_tiles = -(-sahb.num_leaves // 8)
-            est_f32 = (-(-sahb.num_internal // 16)
-                       + lt_tiles) * 8 * 128 * 4
-            est_bf16 = (-(-sahb.num_internal // 32)
-                        + lt_tiles) * 8 * 128 * 4
-            from sycl_ray_tracer_tpu.models.trace import (
-                VMEM_TABLE_LIMIT_BYTES)
-            # only preempt treelets when f32 genuinely does NOT fit
-            # (a lowered SRT_TREELET_THRESHOLD_TRIS knob must still
-            # force treelets on small scenes)
-            if (est_f32 > VMEM_TABLE_LIMIT_BYTES
-                    >= est_bf16):
-                want_treelets = False
-                force_bf16 = True
-            else:
-                sahb = None
-        else:
-            sahb = None
-    if want_treelets:
-        inv_morton = _inverse_order(order, host.num_triangles)
-        tl_bf16 = (os.environ.get("SRT_BF16_NODES", "0") == "1")
-        tl = _tl.build_treelets(host.tri_v, inv_morton, leaf_size,
-                                bf16_nodes=tl_bf16)
-        has_tiles = False  # skip the (unused) single-tree SAH tiles
-
-    if (has_tiles and host.num_triangles and sahb is None
-            and os.environ.get("SRT_NO_SAH") != "1"):
-        sahb = _sah.build_sah(host.tri_v, leaf_size)
-    # bf16-packed node tiles (half the VMEM, 3 fewer gathers/visit;
-    # boxes only widen, so results are identical). Measured SLOWER
-    # end-to-end on v5e (3.74 vs 3.95 Mrays/s — the in-loop unpack
-    # outweighs the saved gathers), so default OFF; it remains the
-    # right call when a 1.1-2.2M-tri scene would otherwise spill to
-    # treelets (it doubles the single-tree VMEM ceiling).
-    use_bf16_nodes = ((os.environ.get("SRT_BF16_NODES", "0") == "1"
-                       or force_bf16)
-                      and os.environ.get("SRT_KERNEL") not in (
-                          "v1", "v2"))
-    cfmt = "f32"
-    if tl is not None and os.environ.get("SRT_BF16_NODES",
-                                         "0") == "1":
-        # treelet node tiles were bf16-packed above; the chained
-        # passes must read them with the bf16p unpacker (the scene's
-        # single cfmt field is safe to repurpose: has_tiles is False
-        # on treelet scenes, so no single-tree kernel reads it)
-        cfmt = "bf16p"
-    wtiles = None
-    # Woop tile budget for the v8 batched-MXU drain: the kernel
-    # compiled and ran at sponza scale with 86.8 MB of wtiles +
-    # 2.1 MB ctiles (tools/kernel_ab8.py), so the v8 table limit is
-    # its own, larger bound (VMEM staging is per-program — v6/v5
-    # programs never see the woop table).
-    from sycl_ray_tracer_tpu.models.trace import V8_TABLE_LIMIT_BYTES
-    want_woop = os.environ.get("SRT_MXU_DRAIN", "1") != "0"
-
-    def _maybe_wtiles(rows):
-        if not want_woop or rows.shape[0] == 0:
-            return None
-        from sycl_ray_tracer_tpu.ops import woop as _woop
-        est = -(-rows.shape[0] // 2) * 8 * 128 * 4
-        if est > V8_TABLE_LIMIT_BYTES:
-            return None
-        return _woop.pack_wtiles_affine_np(rows, leaf_size)
-
-    if sahb is not None and sahb.num_internal + sahb.num_leaves < (
-            1 << 24):
-        sah_rows = _sah.leaf_rows(host.tri_v, sahb.order, leaf_size)
-        ctiles, ltiles = wbvh.pack_tiles_np(
-            sahb.children, sahb.child_ids, sah_rows, leaf_size)
-        wtiles = _maybe_wtiles(sah_rows)
-        if use_bf16_nodes:
-            ctiles = wbvh.pack_ctiles_bf16_np(sahb.children,
-                                              sahb.child_ids)
-            cfmt = "bf16p"
-        # SAH hit slots -> Morton slots (one [R] gather per traversal;
-        # all shading arrays stay in the canonical Morton order)
-        inv_morton = _inverse_order(order, host.num_triangles)
-        remap = np.where(sahb.order >= 0,
-                         inv_morton[np.maximum(sahb.order, 0)],
-                         -1).astype(np.int32)
-        has_sah = True
-        sah_ni = sahb.num_internal
-    elif has_tiles:
-        child_ids = wbvh.heap_child_ids_np(ni)
-        ctiles, ltiles = wbvh.pack_tiles_np(
-            np.asarray(bvh.children), child_ids,
-            np.asarray(bvh.leaves), leaf_size)
-        wtiles = _maybe_wtiles(np.asarray(bvh.leaves))
-        if use_bf16_nodes:
-            ctiles = wbvh.pack_ctiles_bf16_np(
-                np.asarray(bvh.children), child_ids)
-            cfmt = "bf16p"
-    else:
-        # tile layout requires K=8 and exact-f32 child ids; the v1
-        # kernel / XLA traversal serve these configurations
-        ctiles = np.zeros((1, 8, 128), np.float32)
-        ltiles = np.zeros((1, 8, 128), np.float32)
-    has_wtiles = wtiles is not None
-    if wtiles is None:
-        wtiles = np.zeros((1, 8, 128), np.float32)
     safe = np.maximum(order, 0)
     validm = order >= 0
 
@@ -407,58 +198,20 @@ def build_device_scene(host: HostScene,
         dummy = jnp.zeros((1, 3), jnp.float32)
         lbvh_lo = lbvh_hi = lbvh_v0 = lbvh_e1 = lbvh_e2 = dummy
 
-    if tl is not None:
-        tl_ctiles = jnp.asarray(tl.ctiles)
-        tl_ltiles = jnp.asarray(tl.ltiles)
-        tl_wtiles = jnp.asarray(tl.wtiles)
-        tl_has_w = tl.wtiles.shape[1] > 1
-        tl_remap = jnp.asarray(tl.remap)
-        tl_lo = jnp.asarray(tl.lo)
-        tl_hi = jnp.asarray(tl.hi)
-        tl_count, tl_ni = tl.count, tl.ni
-    else:
-        z = jnp.zeros((1, 1, 8, 128), jnp.float32)
-        tl_ctiles = tl_ltiles = tl_wtiles = z
-        tl_has_w = False
-        tl_remap = jnp.zeros((1, 1), jnp.int32)
-        tl_lo = tl_hi = jnp.zeros((1, 3), jnp.float32)
-        tl_count, tl_ni = 0, 1
-
     m = host.materials
-    # Packed per-triangle shading table: ONE take per bounce replaces
-    # the [R,3,3]+[R,3,2] takes (round 2), stored triangle-major since
-    # round 3 (row takes measured 2.2x the lane-axis layout), 16 wide
-    # since round 3's lane16 probe (material constants come from the
-    # tiny [M] tables instead; see the DeviceScene field comment).
-    # Values are bit-identical to the unpacked path (ints stored as
-    # exact small f32).
+    # Ints are stored as exact small f32.
     lk = tri_n.shape[0]
-    stbl = np.zeros((16, lk), np.float32)
-    stbl[0:9] = tri_n.reshape(lk, 9).T
-    stbl[9:15] = tri_uv.reshape(lk, 6).T
-    stbl[15] = tri_mat.astype(np.float32)
+    stbl = np.empty((lk, 16), np.float32)
+    stbl[:, 0:9] = tri_n.reshape(lk, 9)
+    stbl[:, 9:15] = tri_uv.reshape(lk, 6)
+    stbl[:, 15] = tri_mat
     return DeviceScene(
-        shade_tbl=jnp.asarray(np.ascontiguousarray(stbl.T)),
+        shade_tbl=jnp.asarray(stbl),
         bvh_nodes=jnp.asarray(bvh.nodes),
-        bvh_children=jnp.asarray(bvh.children),
-        bvh_leaves=jnp.asarray(bvh.leaves),
-        bvh_ctiles=jnp.asarray(ctiles),
-        bvh_ltiles=jnp.asarray(ltiles),
-        bvh_wtiles=jnp.asarray(wtiles),
-        bvh_remap=jnp.asarray(remap),
-        has_wtiles=has_wtiles,
         lbvh_lo=lbvh_lo, lbvh_hi=lbvh_hi,
         lbvh_v0=lbvh_v0, lbvh_e1=lbvh_e1, lbvh_e2=lbvh_e2,
-        tl_ctiles=tl_ctiles, tl_ltiles=tl_ltiles,
-        tl_wtiles=tl_wtiles, tl_has_w=tl_has_w, tl_remap=tl_remap,
-        tl_lo=tl_lo, tl_hi=tl_hi, tl_count=tl_count, tl_ni=tl_ni,
-        intersector=intersector, cfmt=cfmt,
-        has_tiles=has_tiles,
+        intersector=intersector,
         has_textures=bool(len(m.tex_id) and (np.asarray(m.tex_id) >= 0).any()),
-        has_sah=has_sah,
-        sah_ni=sah_ni,
-        tri_n=jnp.asarray(tri_n), tri_uv=jnp.asarray(tri_uv),
-        tri_mat=jnp.asarray(tri_mat),
         mat_type=jnp.asarray(m.mtype.astype(np.int32)),
         mat_albedo=jnp.asarray(m.albedo),
         mat_tex=jnp.asarray(m.tex_id),

@@ -17,28 +17,14 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
-import os
-
-import jax
-
 from sycl_ray_tracer_tpu.models import materials as mats
+from sycl_ray_tracer_tpu.models.scene import INTERSECTORS
 from sycl_ray_tracer_tpu.ops.intersect import Hit
 from sycl_ray_tracer_tpu.ops.wbvh import traverse8
 from sycl_ray_tracer_tpu.ops.vec import V3, normalize, where
-
-# The Pallas packet kernel needs the split node tables resident in
-# VMEM; the compile ceiling measured on v5e is between 50 and 64 MB
-# (kernel stack included), so cap the tables at 48 MB (~1.2M triangles
-# at K=8). Beyond this we fall back to the XLA traversal.
-VMEM_TABLE_LIMIT_BYTES = 48 * 1024 * 1024
-# The v8 batched-MXU-drain kernel stages ctiles + WOOP tiles
-# (256 B/tri) per program; it compiled and ran at 86.8 MB of wtiles
-# on sponza_proc (tools/kernel_ab8.py), so its own ceiling is higher
-# than the v5 split-table one — capped below the 100 MB
-# vmem_limit_bytes the kernel requests, with room for scratch.
-V8_TABLE_LIMIT_BYTES = 90 * 1024 * 1024
 
 
 class PathState(NamedTuple):
@@ -50,233 +36,27 @@ class PathState(NamedTuple):
     done: jnp.ndarray  # bool
 
 
-# Kernel-selection knobs, read ONCE at import like SORT_MODE/TL_BIN:
-# these feed traced code, so a mid-process env flip could never take
-# effect anyway (the first compile freezes the choice per shape) —
-# reading at import makes that contract explicit instead of silently
-# ignoring late flips (round-1 verdict's freeze-at-first-compile trap).
-FORCED_KERNEL = os.environ.get("SRT_KERNEL")
-FORCE_XLA = (bool(os.environ.get("SRT_FORCE_XLA_TRAVERSE"))
-             or FORCED_KERNEL == "xla")
-_warned_forced = set()
-
-
-def _packet_kernel_version(scene) -> int:
-    """0 = XLA traversal, 1 = v1 packet kernel, 2 = v2 tile kernel,
-    5 = v5 sync-amortized tile kernel (default on TPU)."""
-    forced = FORCED_KERNEL
-    if FORCE_XLA:
-        return 0
-    if jax.default_backend() != "tpu":
-        return 0  # Mosaic kernels; CPU tests use the XLA twin
-    split_bytes = (scene.bvh_children.size + scene.bvh_leaves.size) * 4
-    v1 = 1 if split_bytes <= VMEM_TABLE_LIMIT_BYTES else 0
-    if forced == "v1":
-        return v1
-    # v2/v5 tile tables exist only for leaf_size=8 scenes (scene.py)
-    if scene.has_tiles:
-        table_bytes = (scene.bvh_ctiles.size + scene.bvh_ltiles.size) * 4
-        if scene.has_instances:
-            table_bytes += scene.inst_ldesc.size * 4
-        if table_bytes <= VMEM_TABLE_LIMIT_BYTES:
-            return 2 if forced == "v2" else 5
-    if forced in ("v2", "v5", "v6") and forced not in _warned_forced:
-        # a probe believing it forced a tile kernel must not silently
-        # measure the v1/XLA fallback
-        import sys
-        print(f"[srt] SRT_KERNEL={forced} ignored: scene has no "
-              f"in-VMEM tile tables (leaf_size={scene.leaf_size}, "
-              f"has_tiles={scene.has_tiles}); using "
-              f"{'v1' if v1 else 'xla'}", file=sys.stderr)
-        _warned_forced.add(forced)
-    return v1
-
-
-# v5 kernel configs from the round-2 TPU sweeps (PLAN_TPU.md):
-# coherent primary packets peak with 4096-ray blocks and deep
-# amortization (rb32 ki3 ml4: 12.6 Mrays/s; one stack walk serves 32
-# rows); incoherent bounce packets peak at 1024-ray blocks (rb8 ki2
-# ml3: 5.15 vs v2's 4.13 Mrays/s) — wider blocks grow the packet's
-# visit union faster than the sync amortizes (rb16 4.57, rb32 3.47).
-V5_PRIMARY = (32, 3, 4)  # (rows, ki, ml)
-V5_BOUNCE = (8, 2, 3)
-# v8 (batched-MXU drains) configs: (rows, ki, kb) — kb = leaves per
-# batched dot. Round-5 sponza sweep (tools/kernel_ab8.py, f32x6 dot):
-# primary rb32-b8 15.73 Mrays/s (vs v6 10.4-10.5, v5-rb8 6.96);
-# bounce rb16-b16 6.37 (vs v5-k2-m3 5.31) — wider ray blocks amortize
-# the per-batch fixed dot cost further before union growth wins.
-V8_PRIMARY = (32, 2, 8)
-V8_BOUNCE = (16, 2, 16)
-
-
-# Treelet ray binning (round-3 VERDICT #6): stable-sort rays by the id
-# of the nearest treelet whose root AABB they enter, so each treelet
-# pass sees mostly-pure packets — packets with NO lane active for a
-# treelet finish in ~2 kernel visits, while the all-rays-through-all-
-# treelets chaining walks every mixed packet T times. Measured OFF by
-# default: the wavefront queue is already Morton-sorted by origin, so
-# rays arrive mostly treelet-grouped and the bin/unbin permutes cost
-# more than the grouping recovers (minecraft_proc 1024^2 spp16 d10
-# warm: binned 2.73 vs chained 3.15 Mrays/s, identical ray totals).
-# Read at import (env knobs inside traced code silently freeze at
-# first compile — round-1 verdict).
-TL_BIN = os.environ.get("SRT_TL_BIN", "0") != "0"
-
-
-def _permute_packed(cols, perm):
-    """Permute N same-length 1-D arrays as ONE packed [R, N] take
-    (separate takes cost ~Nx one packed take; PLAN_TPU.md).
-
-    int32 columns do NOT ride as raw bitcasts: tri = -1 is bit pattern
-    0xFFFFFFFF, a quiet NaN that XLA:TPU may CANONICALIZE in transit
-    (measured round 3: every permuted miss id came back 0x7FC00000 =
-    +2139095040, turning misses into hits and making every bounce-10
-    ray immortal). Values are biased into a guaranteed-non-NaN float
-    range instead: bits = (v + 1) | 0x40000000, which stays below the
-    NaN region (bits > 0x7F800000) for -1 <= v < 0x3F800000 - 1
-    (~1.07e9) — covering tri ids, queue ids, and flags by ~60x —
-    and non-NaN floats are never rewritten by the FPU."""
-    def enc(c):
-        if c.dtype == jnp.float32:
-            return c
-        return jax.lax.bitcast_convert_type(
-            (c.astype(jnp.int32) + 1) | jnp.int32(0x40000000),
-            jnp.float32)
-
-    def dec(p, dt):
-        if dt == jnp.float32:
-            return p
-        v = (jax.lax.bitcast_convert_type(p, jnp.int32)
-             & jnp.int32(0x3FFFFFFF)) - 1
-        return v.astype(dt)
-
-    packed = jnp.stack([enc(c) for c in cols], axis=1)
-    packed = jnp.take(packed, perm, axis=0)
-    return [dec(packed[:, i], c.dtype) for i, c in enumerate(cols)]
-
-
-def _intersect_treelets(scene, o: V3, d: V3, active, primary: bool,
-                        rows: int | None = None) -> Hit:
-    """Chained per-treelet kernel passes (ops/treelets.py design).
-
-    Pass i runs the v5 kernel over treelet i's tables with t_init =
-    the best hit so far; a per-lane slab test against the treelet's
-    root AABB deactivates lanes that cannot improve. The kernel
-    reports tri >= 0 only for strictly closer hits, so combining is a
-    select. Hit ids remap from treelet-local slots to the canonical
-    Morton order every shading array uses. With TL_BIN, rays are
-    first stable-sorted by nearest-entered treelet (results are
-    inverse-permuted back, so callers see input order)."""
-    from sycl_ray_tracer_tpu.ops.intersect import BIG
-    from sycl_ray_tracer_tpu.ops.traverse_pallas5 import (
-        traverse_packets5)
-
-    r = o.x.shape[0]
-    act0 = (jnp.ones((r,), bool) if active is None
-            else active.astype(bool))
-    rb, ki, ml = V5_PRIMARY if primary else V5_BOUNCE
-    inv = lambda a: jnp.where(jnp.abs(a) > 1e-20, 1.0 / a, 1e20)
-    ix, iy, iz = inv(d.x), inv(d.y), inv(d.z)
-
-    perm = None
-    if TL_BIN and scene.tl_count > 1:
-        ents = []
-        for i in range(scene.tl_count):
-            lo, hi = scene.tl_lo[i], scene.tl_hi[i]
-            t1 = (lo[0] - o.x) * ix
-            t2 = (hi[0] - o.x) * ix
-            tmin = jnp.minimum(t1, t2)
-            tmax = jnp.maximum(t1, t2)
-            t1 = (lo[1] - o.y) * iy
-            t2 = (hi[1] - o.y) * iy
-            tmin = jnp.maximum(tmin, jnp.minimum(t1, t2))
-            tmax = jnp.minimum(tmax, jnp.maximum(t1, t2))
-            t1 = (lo[2] - o.z) * iz
-            t2 = (hi[2] - o.z) * iz
-            tmin = jnp.maximum(tmin, jnp.minimum(t1, t2))
-            tmax = jnp.minimum(tmax, jnp.maximum(t1, t2))
-            ok = act0 & (tmax >= jnp.maximum(tmin, 0.0))
-            ents.append(jnp.where(ok, tmin, jnp.float32(BIG)))
-        stack = jnp.stack(ents, axis=0)                # [T, R]
-        first = jnp.argmin(stack, axis=0).astype(jnp.int32)
-        first = jnp.where(stack.min(axis=0) >= jnp.float32(BIG) * 0.5,
-                          jnp.int32(scene.tl_count), first)
-        perm = jnp.argsort(first, stable=True)
-        # the entry distances ride the SAME packed permute as the ray
-        # payload (flat-width gather economics) so the chain loop need
-        # not redo the T x R slab tests on the permuted rays
-        cols = _permute_packed(
-            [o.x, o.y, o.z, d.x, d.y, d.z,
-             act0.astype(jnp.int32)] + ents, perm)
-        o = V3(cols[0], cols[1], cols[2])
-        d = V3(cols[3], cols[4], cols[5])
-        act0 = cols[6] != 0
-        ents = cols[7:]
-
-    t_cur = jnp.full((r,), BIG, jnp.float32)
-    tri_cur = jnp.full((r,), -1, jnp.int32)
-    u_cur = jnp.zeros((r,), jnp.float32)
-    v_cur = jnp.zeros((r,), jnp.float32)
-    for i in range(scene.tl_count):
-        if perm is not None:
-            # permuted entry distance: BIG where inactive or slab-miss
-            # (baked in above), so one compare replaces the slab redo
-            act_i = ents[i] < t_cur
-        else:
-            lo, hi = scene.tl_lo[i], scene.tl_hi[i]
-            t1 = (lo[0] - o.x) * ix
-            t2 = (hi[0] - o.x) * ix
-            tmin = jnp.minimum(t1, t2)
-            tmax = jnp.maximum(t1, t2)
-            t1 = (lo[1] - o.y) * iy
-            t2 = (hi[1] - o.y) * iy
-            tmin = jnp.maximum(tmin, jnp.minimum(t1, t2))
-            tmax = jnp.minimum(tmax, jnp.maximum(t1, t2))
-            t1 = (lo[2] - o.z) * iz
-            t2 = (hi[2] - o.z) * iz
-            tmin = jnp.maximum(tmin, jnp.minimum(t1, t2))
-            tmax = jnp.minimum(tmax, jnp.maximum(t1, t2))
-            act_i = (act0 & (tmax >= jnp.maximum(tmin, 0.0))
-                     & (tmin < t_cur))
-        if scene.tl_has_w:
-            # v8 batched-MXU drains per treelet pass (SRT_TL_V8=1:
-            # smaller treelets — the woop table is 4x the MT leaf
-            # bytes — but ~20-40% faster drains; A/B in PLAN_TPU)
-            from sycl_ray_tracer_tpu.ops.traverse_pallas8 import (
-                traverse_packets8)
-            rb8, ki8, kb8 = V8_PRIMARY if primary else V8_BOUNCE
-            hit = traverse_packets8(
-                scene.tl_ctiles[i], scene.tl_wtiles[i],
-                scene.tl_ni, scene.leaf_size, o, d,
-                active=act_i, rows=rows or rb8, ki=ki8, kb=kb8,
-                t_init=t_cur, cfmt=scene.cfmt)
-        else:
-            hit = traverse_packets5(
-                scene.tl_ctiles[i], scene.tl_ltiles[i],
-                scene.tl_ni, scene.leaf_size, o, d,
-                active=act_i, rows=rows or rb,
-                ki=ki, ml=ml, t_init=t_cur, cfmt=scene.cfmt)
-        better = hit.tri >= 0
-        tri_i = jnp.take(scene.tl_remap[i], jnp.maximum(hit.tri, 0))
-        t_cur = jnp.where(better, hit.t, t_cur)
-        tri_cur = jnp.where(better, tri_i, tri_cur)
-        u_cur = jnp.where(better, hit.u, u_cur)
-        v_cur = jnp.where(better, hit.v, v_cur)
-    if perm is not None:
-        # invert the permutation in O(R) (scatter of iota) instead of
-        # paying a second full argsort
-        inv_perm = jnp.zeros_like(perm).at[perm].set(
-            jnp.arange(r, dtype=perm.dtype))
-        t_cur, tri_cur, u_cur, v_cur = _permute_packed(
-            [t_cur, tri_cur, u_cur, v_cur], inv_perm)
-    return Hit(t=t_cur, tri=tri_cur, u=u_cur, v=v_cur)
+def resolve_intersector(name: str, platform: str) -> str:
+    """The walk a scene's static `intersector` field selects on a
+    platform: "auto" is the CUDA kernel on a GPU and the XLA walk
+    (traverse8) elsewhere; "xla", "cuda" and "lbvh" name one walk."""
+    if name not in INTERSECTORS:
+        raise ValueError(f"unknown intersector {name!r}; "
+                         f"choices: {INTERSECTORS}")
+    if name == "auto":
+        return "cuda" if platform == "gpu" else "xla"
+    if name == "cuda" and platform != "gpu":
+        raise ValueError("intersector 'cuda' needs an NVIDIA GPU; "
+                         f"the default backend is {platform!r}")
+    return name
 
 
 def intersect_scene(scene, o: V3, d: V3,
-                    active: jnp.ndarray | None = None,
-                    rows: int | None = None,
-                    primary: bool = False) -> Hit:
-    if scene.intersector == "lbvh":
+                    active: jnp.ndarray | None = None) -> Hit:
+    """Closest hit of every ray (the reference's rtcIntersect1,
+    trace_ray.hpp:22) through the walk `scene.intersector` selects."""
+    kind = resolve_intersector(scene.intersector, jax.default_backend())
+    if kind == "lbvh":
         # independently selectable binary-LBVH path (scene.py); the
         # Sponza-scale convergence gate renders through this and the
         # default path with shared RNG/estimator (tests/test_render.py)
@@ -284,85 +64,12 @@ def intersect_scene(scene, o: V3, d: V3,
         return traverse(scene.lbvh_lo, scene.lbvh_hi, scene.lbvh_v0,
                         scene.lbvh_e1, scene.lbvh_e2, o, d,
                         scene.leaf_size, active_in=active)
-    if scene.tl_count > 0 and jax.default_backend() == "tpu" and (
-            not FORCE_XLA):
-        return _intersect_treelets(scene, o, d, active, primary,
-                                   rows=rows)
-    if scene.has_instances and (jax.default_backend() != "tpu"
-                                or FORCE_XLA):
-        raise NotImplementedError(
-            "two-level instanced scenes render through the Pallas "
-            "itf kernel (TPU). On CPU, bake the scene instead "
-            "(utils.instanced.InstancedHostScene.bake -> "
-            "build_device_scene), like the oracle/test paths do.")
-    version = _packet_kernel_version(scene)
-    if version == 2 and scene.cfmt != "f32":
-        version = 5  # v2 reads f32 tiles only
-    if version in (2, 5):
-        ni = scene.sah_ni if scene.has_sah else scene.bvh_ni
-        if version == 5:
-            if scene.has_instances:
-                # two-level instanced scene: the v5 itf drain
-                # transforms rays into instance space per leaf
-                # (models/instanced.py); v6/v8 read baked leaf tiles
-                # and cannot serve these scenes
-                from sycl_ray_tracer_tpu.ops.traverse_pallas5 import (
-                    traverse_packets5)
-                rb, ki, ml = V5_PRIMARY if primary else V5_BOUNCE
-                hit = traverse_packets5(
-                    scene.bvh_ctiles, scene.bvh_ltiles, ni,
-                    scene.leaf_size, o, d, active=active,
-                    rows=rows or rb, ki=ki, ml=ml, cfmt=scene.cfmt,
-                    ldesc=scene.inst_ldesc)
-            elif scene.has_wtiles and FORCED_KERNEL in (None, "v8"):
-                # v8 batched-MXU Woop drains for BOTH workloads
-                # (round-5 sponza A/B, f32x6 dot: primary rb32 15.73
-                # vs v6 10.4-10.5; sorted bounce rb16-b16 6.37 vs
-                # v5-k2-m3 5.31 Mrays/s — tools/kernel_ab8.py).
-                # Forced off via SRT_KERNEL=v5/v6 or SRT_MXU_DRAIN=0
-                # (no wtiles built).
-                from sycl_ray_tracer_tpu.ops.traverse_pallas8 import (
-                    traverse_packets8)
-                rb, ki, kb = V8_PRIMARY if primary else V8_BOUNCE
-                hit = traverse_packets8(
-                    scene.bvh_ctiles, scene.bvh_wtiles, ni,
-                    scene.leaf_size, o, d, active=active,
-                    rows=rows or rb, ki=ki, kb=kb, cfmt=scene.cfmt)
-            elif primary and scene.cfmt == "f32" and rows is None:
-                # coherent primaries run fastest on the dual-walk v6
-                # (12.87 vs 12.59 Mrays/s; PLAN_TPU round-2 sweeps)
-                from sycl_ray_tracer_tpu.ops.traverse_pallas6 import (
-                    traverse_packets6)
-                hit = traverse_packets6(
-                    scene.bvh_ctiles, scene.bvh_ltiles, ni,
-                    scene.leaf_size, o, d, active=active, ki=1, ml=2)
-            else:
-                from sycl_ray_tracer_tpu.ops.traverse_pallas5 import (
-                    traverse_packets5)
-                rb, ki, ml = V5_PRIMARY if primary else V5_BOUNCE
-                hit = traverse_packets5(
-                    scene.bvh_ctiles, scene.bvh_ltiles, ni,
-                    scene.leaf_size, o, d, active=active,
-                    rows=rows or rb, ki=ki, ml=ml, cfmt=scene.cfmt)
-        else:
-            from sycl_ray_tracer_tpu.ops.traverse_pallas2 import (
-                traverse_packets2)
-            hit = traverse_packets2(scene.bvh_ctiles, scene.bvh_ltiles,
-                                    ni, scene.leaf_size, o, d,
-                                    active=active, rows=rows)
-        if scene.has_sah:
-            # SAH-slot hit ids -> canonical Morton slots (scene.py)
-            tri = jnp.where(
-                hit.tri >= 0,
-                jnp.take(scene.bvh_remap, jnp.maximum(hit.tri, 0)),
-                -1)
-            hit = hit._replace(tri=tri)
-        return hit
-    if version == 1:
-        from sycl_ray_tracer_tpu.ops.traverse_pallas import traverse_packets
-        return traverse_packets(scene.bvh_children, scene.bvh_leaves,
-                                scene.bvh_ni, scene.bvh_depth,
-                                scene.leaf_size, o, d, active=active)
+    if kind == "cuda":
+        from sycl_ray_tracer_tpu.ops import traverse_cuda
+        traverse_cuda.ensure_registered()
+        return traverse_cuda.traverse8_cuda(
+            scene.bvh_nodes, scene.bvh_ni, scene.bvh_depth,
+            scene.leaf_size, o, d, active_in=active)
     return traverse8(scene.bvh_nodes, scene.bvh_ni,
                      scene.bvh_depth, scene.leaf_size,
                      o, d, active_in=active)
@@ -399,51 +106,16 @@ def shade_lanes(scene, hit: Hit):
 
     Parity: barycentric normal/UV interpolation + normalize of
     trace_ray.hpp:32-59. ONE row take from the triangle-major packed
-    GEOMETRY table (scene.shade_tbl [LK, 16]: normals, uv, mat id)
-    plus ten tiny [M]-table takes keyed by the gathered mat id for the
-    material constants. Measured round 3 (tools/probe_shade_variants.py,
-    under the real access pattern — disjoint outputs, no reduction
-    fusion): lane16 split 37.3 vs 32.2 Mrows/s for the 25-wide
-    per-triangle bake at 8M rays (the [M] takes are cache-resident;
-    the wide take pays per component). Row takes measured 2.2x the
-    round-2 lane-axis layout (tools/probe_shade_gather.py) — but their
-    [R, 16] results are lane-PADDED to 128 by XLA (the round-2 16M-wave
-    OOM), so the take runs in <=2M-row chunks, bounding the padded
-    transient at ~1 GB. Chunk count is static (R is the compiled
-    bucket size)."""
+    geometry table (scene.shade_tbl [LK, 16]: normals, uv, mat id)
+    plus small [M]-table takes keyed by the gathered mat id for the
+    material constants."""
     safe_tri = jnp.maximum(hit.tri, 0)
-    inst = None
-    if scene.has_instances:
-        # composed instanced hit ids (models/instanced.py):
-        # id = inst * S8 + shared_row. The shared tables hold
-        # LOCAL-space normals; the instance's inverse-transpose
-        # rotates them to world after interpolation (the baked loader
-        # applies the same matrix at ingest, utils/gltf.py).
-        inst = safe_tri // jnp.int32(scene.inst_s8)
-        safe_tri = safe_tri % jnp.int32(scene.inst_s8)
-    R = safe_tri.shape[0]
-    CH = 1 << 21
-
-    def take_cols(idx):
-        g = jnp.take(scene.shade_tbl, idx, axis=0)      # [ch, 16]
-        return [g[:, i] for i in range(16)]
-
-    if R <= CH:
-        c = take_cols(safe_tri)
-    else:
-        chunks = [take_cols(safe_tri[i:i + CH])
-                  for i in range(0, R, CH)]
-        c = [jnp.concatenate([ch[i] for ch in chunks])
-             for i in range(16)]
+    g = jnp.take(scene.shade_tbl, safe_tri, axis=0)      # [R, 16]
+    c = [g[:, i] for i in range(16)]
     w = 1.0 - hit.u - hit.v
     nx = w * c[0] + hit.u * c[3] + hit.v * c[6]
     ny = w * c[1] + hit.u * c[4] + hit.v * c[7]
     nz = w * c[2] + hit.u * c[5] + hit.v * c[8]
-    if inst is not None:
-        nm = [jnp.take(scene.inst_nmat[:, i], inst) for i in range(9)]
-        nx, ny, nz = (nm[0] * nx + nm[1] * ny + nm[2] * nz,
-                      nm[3] * nx + nm[4] * ny + nm[5] * nz,
-                      nm[6] * nx + nm[7] * ny + nm[8] * nz)
     normal = normalize(V3(nx, ny, nz), eps=1e-20)
     uv_u = w * c[9] + hit.u * c[11] + hit.v * c[13]
     uv_v = w * c[10] + hit.u * c[12] + hit.v * c[14]
@@ -465,14 +137,12 @@ def shade_lanes(scene, hit: Hit):
 
 def trace_step(scene, state: PathState, key: jnp.ndarray,
                bounce_counter, rr: bool = False,
-               bounce_idx=None, primary: bool = False) -> PathState:
-    """Advance every non-done lane by one path vertex. `primary` is a
-    STATIC flag selecting the coherent-packet kernel config (the
-    megakernel peels bounce 0 out of its while_loop to set it)."""
+               bounce_idx=None) -> PathState:
+    """Advance every non-done lane by one path vertex."""
     o, d, att, rad = state.o, state.d, state.att, state.rad
     live = ~state.done
 
-    hit = intersect_scene(scene, o, d, active=live, primary=primary)
+    hit = intersect_scene(scene, o, d, active=live)
     miss = hit.tri < 0
 
     sky = scene.sky_color

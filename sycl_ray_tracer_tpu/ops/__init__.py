@@ -1,1 +1,2 @@
-"""Compute kernels and math primitives (JAX/XLA + Pallas)."""
+"""Compute kernels and math primitives (JAX/XLA, plus a CUDA kernel
+through the XLA FFI)."""

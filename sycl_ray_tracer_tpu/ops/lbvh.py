@@ -2,10 +2,11 @@
 
 Replaces Embree's BVH build (scene.cpp:101-107, 404-439). Design is
 deliberately NOT a Karras radix tree: a Karras build wants per-node
-atomics for the AABB-fit pass, which TPUs do not have. Instead:
+atomics for the AABB-fit pass, which a traced array program does
+not have. Instead:
 
 1. Morton-encode triangle centroids (30-bit, 10/axis).
-2. Sort triangles by code (jax.lax sort — XLA's TPU sort).
+2. Sort triangles by code (jax.lax sort).
 3. Pack K consecutive sorted triangles per leaf; pad leaf count to a
    power of two with empty (inverted-AABB) leaves.
 4. Treat the leaves as the bottom level of a *complete binary heap*

@@ -6,11 +6,11 @@ with a persistent per-pixel state buffer in the wavefront renderer
 (render_megakernel.cpp:144-146). Stateful RNG is a poor fit for a traced,
 functional compiler: it serializes draws and forces a carried buffer.
 
-TPU-native replacement: a *counter-based* generator. Every draw is a pure
-function ``u32 = mix(key, counter)``; lanes never share state, draws are
-data-parallel, and the same bits are reproduced by the numpy oracle, the
-jitted renderers, and (later) Pallas kernels, which makes fixed-seed
-golden tests exact across backends.
+Replacement: a *counter-based* generator. Every draw is a pure function
+``u32 = mix(key, counter)``; lanes never share state, draws are
+data-parallel, and the same bits are reproduced by the numpy oracle and
+the jitted renderers, which makes fixed-seed golden tests exact across
+backends.
 
 The mixer is Jarzynski & Olano's ``pcg3d``-style integer hash reduced to
 2 inputs (a.k.a. pcg2d), a well-studied GPU hash with good statistical

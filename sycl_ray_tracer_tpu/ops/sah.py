@@ -1,17 +1,12 @@
-"""Binned-SAH BVH8 (native builder binding + host-side packing).
+"""Binned-SAH BVH8 (binding of the native build).
 
 The quality replacement for the implicit Morton heap: Embree gives the
 reference an SAH tree for free (scene.cpp:101-107); ours is built by
-native/srt_bvh.cpp (binary binned SAH -> largest-surface-area 8-wide
-collapse) and packed into the same tile tables the v2 packet kernel
-consumes (ops/traverse_pallas2.py reads child ids from the tiles, so
-the explicit tree drops in with no kernel change).
-
-Triangle identity: the kernel reports hits in SAH-slot space
-(leaf_row * K + j). `remap` translates those to the scene's canonical
-Morton-slot space with one [R] gather, so shading data, the XLA
-traversal twin, the oracle, and every test keep a single triangle
-order (models/trace.py applies it).
+native/srt_bvh.cpp (binary binned SAH -> surface-area-optimal 8-wide
+collapse). No renderer walks it yet: the GPU walks read the Morton
+heap (ops/wbvh.py). A walk over this tree would report hits in
+SAH-slot space (leaf_row * K + j) and translate them through `order`
+to the scene's canonical triangle order.
 """
 
 from __future__ import annotations
@@ -32,12 +27,7 @@ _INF = np.float32(3.0e38)
 # The parity analog of Embree's RTC_BUILD_QUALITY_HIGH build the
 # reference could request (scene.cpp:101-107 uses the default medium
 # quality, which — like our default — does object splits only).
-# Default OFF from measurement, not omission: on both benchmark
-# scenes spatial splits RAISE the packet-union cost the TPU kernel
-# pays (tools/tree_quality.py: sponza_proc bounce union +6.9%,
-# wide-node child area +6.6-7.1% across alpha 1e-5..1e-2) — packet
-# unions, unlike the per-ray GPU walks SBVH was designed for, pay
-# for the duplicated leaves more than they win from tighter boxes.
+# Default OFF; SRT_SBVH=1 turns them on.
 _SBVH_ALPHA = float(os.environ.get("SRT_SBVH_ALPHA", "1e-5"))
 _SBVH_FACTOR = float(os.environ.get("SRT_SBVH_FACTOR", "1.4"))
 
@@ -119,11 +109,10 @@ def build_sah(tri_v: np.ndarray, leaf_size: int = 8,
     """Build the SAH BVH on host. Returns None when the native
     library is unavailable (callers fall back to the Morton heap).
     `spatial` enables SBVH spatial splits (default: the SRT_SBVH env
-    knob, which is OFF unless SRT_SBVH=1 — measured a net loss on the
-    benchmark scenes, see PLAN_TPU.md); silently degrades to
-    object-only with a stale library. `width` != 8 selects the
-    probe-only wide-node fanout (tools/probe_tree_width.py); it is
-    mutually exclusive with `spatial` and requires a fresh library."""
+    knob, which is OFF unless SRT_SBVH=1); silently degrades to
+    object-only with a stale library. `width` != 8 selects a
+    wide-node fanout for tree-shape probes; it is mutually exclusive
+    with `spatial` and requires a fresh library."""
     lib = native_loader._load_library()
     if lib is None or not _bind(lib):
         return None
@@ -174,23 +163,6 @@ def build_sah(tri_v: np.ndarray, leaf_size: int = 8,
                   num_internal=int(ni), num_leaves=int(nl),
                   depth=int(depth), leaf_size=leaf_size,
                   num_refs=int(nrefs), width=width)
-
-
-def leaf_rows(tri_v: np.ndarray, order: np.ndarray, leaf_size: int
-              ) -> np.ndarray:
-    """[L, 9K] component-major triangle rows (v0/e1/e2 per slot) for
-    the SAH leaf order; padding slots are degenerate (all-zero)."""
-    k = leaf_size
-    valid = order >= 0
-    safe = np.maximum(order, 0)
-    sv = tri_v[safe].astype(np.float32)
-    sv[~valid] = 0.0
-    v0 = sv[:, 0, :]
-    e1 = sv[:, 1, :] - sv[:, 0, :]
-    e2 = sv[:, 2, :] - sv[:, 0, :]
-    comps = np.concatenate([v0, e1, e2], axis=1)       # [L*K, 9]
-    l = order.shape[0] // k
-    return comps.reshape(l, k, 9).transpose(0, 2, 1).reshape(l, 9 * k)
 
 
 def validate(bvh: SahBvh, tri_v: np.ndarray) -> None:

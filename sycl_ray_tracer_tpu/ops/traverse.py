@@ -1,11 +1,11 @@
 """BVH traversal: batched, mask-predicated, stack-per-lane.
 
-Replaces Embree's rtcIntersect1 traversal (trace_ray.hpp:22). On a GPU
-each thread chases its own pointer path; on TPU we instead run *all*
-rays in lock-step vector ops, each lane carrying its own traversal
-state. Divergence costs idle lanes, not scalar serialization; the
-implicit-heap BVH (ops/lbvh.py) keeps every step's memory traffic to
-index-free arithmetic plus a handful of row gathers.
+Replaces Embree's rtcIntersect1 traversal (trace_ray.hpp:22) with a
+walk that runs *all* rays in lock-step array ops, each lane carrying
+its own traversal state: the independent cross-check of the WBVH8
+walks. Divergence costs idle lanes; the implicit-heap BVH
+(ops/lbvh.py) keeps every step's memory traffic to index-free
+arithmetic plus a handful of row gathers.
 
 Per step, per lane (fully vectorized, no data-dependent control flow):
   - internal node: slab-test both children (children of i are 2i, 2i+1

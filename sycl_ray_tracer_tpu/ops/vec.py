@@ -1,8 +1,8 @@
 """Structure-of-arrays 3-vector math.
 
-TPU-first design note: the VPU operates on (8, 128) registers. Keeping a
-trailing length-3 axis would waste 125/128 lanes on every op, so vectors
-are carried as three separate full-width arrays (``V3``). Scene storage
+Design note: vectors are carried as three separate full-width arrays
+(``V3``) rather than with a trailing length-3 axis, so every
+elementwise op runs over whole [R] arrays. Scene storage
 uses ``[N, 3]`` float32 (contiguous rows gather well); unpack to ``V3``
 right after any gather.
 

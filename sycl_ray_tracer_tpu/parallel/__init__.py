@@ -1,1 +1,1 @@
-"""Multi-chip scaling over jax.sharding.Mesh (ICI collectives)."""
+"""Multi-device scaling over jax.sharding.Mesh."""

@@ -1,21 +1,22 @@
-"""Multi-chip rendering over a 2-D device mesh.
+"""Multi-device rendering over a 2-D device mesh.
 
 The reference is strictly single-device (SURVEY.md section 2.2: no
-NCCL/MPI, one SYCL queue). This module is the TPU-native scaling story:
+NCCL/MPI, one SYCL queue). This module is the scaling story:
 
-- axis "dp" shards the SAMPLE axis: each chip integrates an spp/dp
+- axis "dp" shards the SAMPLE axis: each device integrates an spp/dp
   slice of the Monte-Carlo estimator with decorrelated RNG streams
   (sample_offset feeds the counter-based keys), and the linear
-  accumulators are reduced with psum over ICI. merge_samples
+  accumulators are summed once per frame. merge_samples
   (render_wavefront.cpp:319-358) becomes literally one collective.
-- axis "sp" shards the PIXEL axis: each chip owns a contiguous slice
+- axis "sp" shards the PIXEL axis: each device owns a contiguous slice
   of the flat pixel space (its own queue, its own accumulator block);
   the image is reassembled by the output sharding, no gather needed.
 
-The scene pytree (BVH + triangles + textures, ~10-150 MB) is replicated
-into every chip's HBM — paths are embarrassingly parallel after that,
-so no per-bounce communication exists at all. Collectives ride ICI
-once per frame.
+The scene pytree (BVH + shading tables + textures) is replicated into
+every device's memory (`replicate`) -- paths are embarrassingly
+parallel after that, so no per-bounce communication exists at all.
+The mesh is a plain reshape of the device list: on a host whose cards
+are joined all to all (NVLink) every device pair is equally close.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from sycl_ray_tracer_tpu.models.camera import Camera, generate_rays
 from sycl_ray_tracer_tpu.models.megakernel import accumulate_megakernel
@@ -45,54 +46,33 @@ def make_mesh(dp: Optional[int] = None, sp: int = 1,
     return Mesh(dev, axis_names=("dp", "sp"))
 
 
-def _render_sharded_wavefront_hostloop(
-        scene, cam: Camera, *, width: int, height: int, spp: int,
-        max_depth: int, seed: int, mesh: Mesh,
-        rr: bool) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Host-driven sharded wavefront: the FAST single-chip pipeline
-    (bounce-synchronous host loop, live-count buckets, adaptive
-    primary/bounce kernel configs, donated buffers, key-from-id RNG)
-    run per shard under shard_map (round-3 VERDICT #4 — the previous
-    sharded path traced the slower bucketless core).
+def replicate(scene, mesh: Mesh):
+    """The scene pytree placed whole on every device of the mesh (a
+    no-op for a scene that is already there)."""
+    return jax.device_put(scene, NamedSharding(mesh, P()))
 
-    Structure per bounce: ONE jitted shard_map program advances every
-    shard's queue; the host reads back only the per-shard live counts
-    (the same one-scalar-per-bounce sync as single-chip,
-    render_wavefront.cpp:144) and picks the next GLOBAL bucket from
-    their max, so every shard compiles the same shapes. Terminated
-    lanes scatter-add inside the shard (shard-local accumulator —
-    scatter never crosses ICI); the only collective is the final
-    psum-style sum over "dp" when the linear accumulators merge.
 
-    Estimator parity: each (global pixel, absolute sample) draws the
-    same key stream as single-chip (key = f(seed, abs sample, global
-    pixel)); dp shards sample slices, sp shards pixel slices.
-    """
+@functools.lru_cache(maxsize=16)
+def _wavefront_programs(mesh: Mesh, width: int, height: int, spp: int,
+                        rr: bool, f16_queue: bool):
+    """The sharded wavefront's jitted programs for one configuration,
+    built once per process: jit keeps compiled code per function
+    object, so programs defined anew inside every render would compile
+    again on every render. Returns (gen, step, scatter_term, finish)."""
     dp = mesh.shape["dp"]
     sp = mesh.shape["sp"]
     n = width * height
     n_local = n // sp
     spp_local = spp // dp
-    # Same adaptive wave sizing as the single-chip loop (one wave when
-    # the shard-local frame fits ~68M rays, else 48M waves — see
-    # render_wavefront and tools/probe_wave_size.py for the
-    # measurements), applied to the per-shard ray count.
-    total_local = spp_local * n_local
-    wave_rays = int(os.environ.get(
-        "SRT_WAVE_RAYS",
-        str(total_local if total_local <= (68 << 20) else 48 << 20)))
-    waves = max(1, min(spp_local, wave_rays // n_local))
-    f16_queue = os.environ.get("SRT_F16_QUEUE") == "1"
-    seed_u = jnp.uint32(seed)
     spec_q = P("dp", "sp", None)
     spec_c = P("dp", "sp")
     spec_a = P("dp", "sp", None, None)
 
     @functools.partial(jax.jit, static_argnames=("w",))
-    def gen(scene, cam, s_local, *, w: int):
+    def gen(scene, cam, seed_u, s_local, *, w: int):
         cap = w * n_local
 
-        def fn(scene, cam):
+        def fn(scene, cam, seed_u):
             dpi = jax.lax.axis_index("dp")
             spi = jax.lax.axis_index("sp")
             from sycl_ray_tracer_tpu.ops import rng as _rng
@@ -119,22 +99,22 @@ def _render_sharded_wavefront_hostloop(
                     + (cnt, acc.reshape(1, 1, n_local, 3)))
 
         return jax.shard_map(
-            fn, mesh=mesh, in_specs=(P(), P()),
+            fn, mesh=mesh, in_specs=(P(), P(), P()),
             out_specs=tuple([spec_q] * 13) + (spec_c, spec_a),
-            check_vma=False)(scene, cam)
+            check_vma=False)(scene, cam, seed_u)
 
     @functools.partial(jax.jit,
-                       static_argnames=("capacity", "primary"),
+                       static_argnames=("capacity",),
                        donate_argnums=(1,))
-    def step(scene, state, s_local, bounce_idx, *, capacity: int,
-             primary: bool):
+    def step(scene, state, seed_u, s_local, bounce_idx, *,
+             capacity: int):
         """One bounce for every shard, deferred accumulation included
         (the same _bounce(deferred_acc=True) branch the single-chip
-        host loop runs — round-2 VERDICT: keep the sharded path and the
-        fast path converged). Terminated rows ride each shard's
+        host loop runs, so the sharded path and the fast path stay
+        converged). Terminated rows ride each shard's
         compaction argsort into [new_count, count); the host slices
         them with scatter_term below."""
-        def fn(scene, *st):
+        def fn(scene, seed_u, *st):
             dpi = jax.lax.axis_index("dp")
             spi = jax.lax.axis_index("sp")
             cols = [c.reshape(capacity) for c in st[:13]]
@@ -147,7 +127,7 @@ def _render_sharded_wavefront_hostloop(
             carry = tuple(cols) + (cnt, acc,
                                    jnp.zeros((1,), jnp.int32))
             out, term = _bounce(scene, None, carry, bounce_idx,
-                                capacity, rr=rr, primary=primary,
+                                capacity, rr=rr,
                                 f16_queue=f16_queue, deferred_acc=True,
                                 key_seed=key_seed)
             new_cols = out[:13]
@@ -162,10 +142,10 @@ def _render_sharded_wavefront_hostloop(
         n_out = 15 + (4 if SORT_MODE != "none" else 0)
         out = jax.shard_map(
             fn, mesh=mesh,
-            in_specs=(P(),) + tuple([spec_q] * 13) + (spec_c, spec_a),
+            in_specs=(P(), P()) + tuple([spec_q] * 13) + (spec_c, spec_a),
             out_specs=(tuple([spec_q] * 13) + (spec_c, spec_a)
                        + tuple([spec_q] * (n_out - 15))),
-            check_vma=False)(scene, *state)
+            check_vma=False)(scene, seed_u, *state)
         return out[:15], (out[15:] if n_out > 15 else None)
 
     @functools.partial(jax.jit, static_argnames=("seg",),
@@ -173,7 +153,7 @@ def _render_sharded_wavefront_hostloop(
     def scatter_term(acc, q_id, cx, cy, cz, start, lo, hi, *, seg: int):
         """Per-shard analog of wavefront._scatter_terminated: scatter-
         add each shard's [lo, hi) terminated segment into its LOCAL
-        accumulator (scatter never crosses ICI). start/lo/hi arrive as
+        accumulator (scatter never crosses devices). start/lo/hi arrive as
         (dp, sp) host-computed arrays — per-shard dynamic bounds with
         one shared static seg so every shard compiles one shape."""
         def fn(acc, q_id, cx, cy, cz, start, lo, hi):
@@ -197,6 +177,57 @@ def _render_sharded_wavefront_hostloop(
             out_specs=spec_a,
             check_vma=False)(acc, q_id, cx, cy, cz, start, lo, hi)
 
+    @jax.jit
+    def finish(acc):
+        # sum over the dp (sample) axis — the merge_samples collective
+        # (render_wavefront.cpp:319-358); sp-major concatenation IS
+        # global pixel order (pix_g = spi * n_local + local)
+        a = acc.sum(axis=0).reshape(n, 3)
+        img = linear_to_gamma(a * (1.0 / spp))
+        return img.reshape(height, width, 3)
+
+    return gen, step, scatter_term, finish
+
+
+def _render_sharded_wavefront_hostloop(
+        scene, cam: Camera, *, width: int, height: int, spp: int,
+        max_depth: int, seed: int, mesh: Mesh,
+        rr: bool) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    """Host-driven sharded wavefront: the FAST single-chip pipeline
+    (bounce-synchronous host loop, live-count buckets, donated
+    buffers, key-from-id RNG)
+    run per shard under shard_map.
+
+    Structure per bounce: ONE jitted shard_map program advances every
+    shard's queue; the host reads back only the per-shard live counts
+    (the same one-scalar-per-bounce sync as single-chip,
+    render_wavefront.cpp:144) and picks the next GLOBAL bucket from
+    their max, so every shard compiles the same shapes. Terminated
+    lanes scatter-add inside the shard (shard-local accumulator —
+    scatter never crosses devices); the only collective is the final
+    psum-style sum over "dp" when the linear accumulators merge.
+
+    Estimator parity: each (global pixel, absolute sample) draws the
+    same key stream as single-chip (key = f(seed, abs sample, global
+    pixel)); dp shards sample slices, sp shards pixel slices.
+    """
+    dp = mesh.shape["dp"]
+    sp = mesh.shape["sp"]
+    n = width * height
+    n_local = n // sp
+    spp_local = spp // dp
+    # Adaptive wave sizing like the single-chip loop (one wave when the
+    # shard-local frame fits ~68M rays, else 48M waves), applied to
+    # the per-shard ray count.
+    total_local = spp_local * n_local
+    wave_rays = int(os.environ.get(
+        "SRT_WAVE_RAYS",
+        str(total_local if total_local <= (68 << 20) else 48 << 20)))
+    waves = max(1, min(spp_local, wave_rays // n_local))
+    f16_queue = os.environ.get("SRT_F16_QUEUE") == "1"
+    seed_u = jnp.uint32(seed)
+    gen, step, scatter_term, finish = _wavefront_programs(
+        mesh, width, height, spp, rr, f16_queue)
     def bucket_of(c, cap):
         from sycl_ray_tracer_tpu.models.wavefront import (
             bucket_of as _bucket_of)
@@ -207,7 +238,7 @@ def _render_sharded_wavefront_hostloop(
         (accumulator [dp, sp, n_local, 3], per-bounce tallies)."""
         rays_w = np.zeros((max_depth,), np.int64)
         cap = w * n_local
-        state = gen(scene, cam, jnp.uint32(s), w=w)
+        state = gen(scene, cam, seed_u, jnp.uint32(s), w=w)
         count_max = cap
         counts_sum = cap * dp * sp
         counts = np.full((dp, sp), cap, np.int64)
@@ -219,9 +250,8 @@ def _render_sharded_wavefront_hostloop(
             if state[0].shape[-1] != b:
                 state = tuple(a[:, :, :b] for a in state[:13]) \
                     + state[13:]
-            state, term = step(scene, state, jnp.uint32(s),
-                               jnp.int32(bounce), capacity=b,
-                               primary=(bounce == 0))
+            state, term = step(scene, state, seed_u, jnp.uint32(s),
+                               jnp.int32(bounce), capacity=b)
             new_counts = np.asarray(state[13]).astype(np.int64)
             if term is not None:
                 # each shard's terminated rows sit in
@@ -255,7 +285,7 @@ def _render_sharded_wavefront_hostloop(
         s += w
 
     # Same wave interleave as the single-chip loops (see
-    # wavefront.interleave_waves for the RPC rationale and the
+    # wavefront.interleave_waves for the rationale and the
     # bit-identity argument); sharing the helper keeps the sharded
     # host loop structurally converged with the fast path.
     from sycl_ray_tracer_tpu.models.wavefront import interleave_waves
@@ -267,67 +297,34 @@ def _render_sharded_wavefront_hostloop(
         combined = acc if combined is None else combined + acc
         rays += rays_w
 
-    @jax.jit
-    def finish(acc):
-        # sum over the dp (sample) axis — the merge_samples collective
-        # (render_wavefront.cpp:319-358); sp-major concatenation IS
-        # global pixel order (pix_g = spi * n_local + local)
-        a = acc.sum(axis=0).reshape(n, 3)
-        img = linear_to_gamma(a * (1.0 / spp))
-        return img.reshape(height, width, 3)
-
     img = finish(combined)
     return img, jnp.asarray(np.minimum(rays, 2**31 - 1).astype(np.int32))
 
 
-def _render_sharded_megakernel_hostloop(
-        scene, cam: Camera, *, width: int, height: int, spp: int,
-        max_depth: int, seed: int, mesh: Mesh, rr: bool,
-        chunk: int, sort_every: int
-) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Host-driven sharded megakernel: the FAST single-chip engine
-    (bounce-chunked + in-program coherence re-sort, _chunked_wave) run
-    per shard under shard_map (round-4 VERDICT: the previous sharded
-    megakernel traced the unchunked, unsorted core — exactly the
-    fast-path/sharded-path divergence round 2 flagged for wavefront).
-
-    Structure per chunk: ONE jitted shard_map program runs k fused
-    bounce iterations on every shard's queue; the host reads back only
-    per-shard live counts and picks the next GLOBAL bucket from their
-    max, so every shard compiles the same shapes (the same protocol as
-    the sharded wavefront loop above). dp shards samples, sp shards
-    pixels; per-lane keys depend only on (seed, absolute sample,
-    global pixel), so the sharded estimator equals single-chip.
-    """
+@functools.lru_cache(maxsize=16)
+def _megakernel_programs(mesh: Mesh, width: int, height: int, spp: int,
+                         max_depth: int, rr: bool, sort_every: int):
+    """The sharded chunked megakernel's jitted programs for one
+    configuration, built once per process (see _wavefront_programs).
+    Returns (mk_first, mk_next, shrink, finish)."""
     from sycl_ray_tracer_tpu.models.megakernel import (
         _chunk_first_body, _chunk_next_body)
-    from sycl_ray_tracer_tpu.models.wavefront import (
-        bucket_of as _bucket_of, interleave_waves)
 
     dp = mesh.shape["dp"]
     sp = mesh.shape["sp"]
     n = width * height
     n_local = n // sp
     spp_local = spp // dp
-    wave_rays = int(os.environ.get("SRT_WAVE_RAYS", str(8 << 20)))
-    lane_bounces = int(os.environ.get("SRT_MK_LANE_BOUNCES",
-                                      str(64 << 20)))
-    tl_chain = max(1, getattr(scene, "tl_count", 0) or 1)
-    lane_bounces //= tl_chain
-    bounces_per_program = min(chunk, max_depth)
-    waves = max(1, min(spp_local, wave_rays // n_local,
-                       lane_bounces
-                       // max(n_local * bounces_per_program, 1)))
-    seed_u = jnp.uint32(seed)
     spec_q = P("dp", "sp", None)
     spec_c = P("dp", "sp")
     # queue layout (megakernel._q_of): 15 f32 + orig int32 + done bool
 
     @functools.partial(jax.jit, static_argnames=("w", "final"))
-    def mk_first(scene, cam, s_local, i_hi, *, w: int, final: bool):
+    def mk_first(scene, cam, seed_u, s_local, i_hi, *, w: int,
+                 final: bool):
         cap = w * n_local
 
-        def fn(scene, cam):
+        def fn(scene, cam, seed_u):
             dpi = jax.lax.axis_index("dp")
             spi = jax.lax.axis_index("sp")
             s_abs = (jnp.asarray(s_local, jnp.uint32)
@@ -343,9 +340,9 @@ def _render_sharded_megakernel_hostloop(
                        live.reshape(1, 1)))
 
         return jax.shard_map(
-            fn, mesh=mesh, in_specs=(P(), P()),
+            fn, mesh=mesh, in_specs=(P(), P(), P()),
             out_specs=tuple([spec_q] * 21) + (spec_q, spec_c),
-            check_vma=False)(scene, cam)
+            check_vma=False)(scene, cam, seed_u)
 
     @functools.partial(jax.jit,
                        static_argnames=("capacity", "final"),
@@ -380,15 +377,55 @@ def _render_sharded_megakernel_hostloop(
     @functools.partial(jax.jit, static_argnames=("b",))
     def shrink(q17, *, b: int):
         # one fused slice program per shape transition (the sharded
-        # analog of wavefront.shrink_queue; same compile-mass
-        # rationale, tools/probe_shrink.py)
+        # analog of wavefront.shrink_queue)
         return tuple(a[:, :, :b] for a in q17)
+
+    @jax.jit
+    def finish(acc):
+        a = acc.sum(axis=0).reshape(n, 3)
+        img = linear_to_gamma(a * (1.0 / spp))
+        return img.reshape(height, width, 3)
+
+    return mk_first, mk_next, shrink, finish
+
+
+def _render_sharded_megakernel_hostloop(
+        scene, cam: Camera, *, width: int, height: int, spp: int,
+        max_depth: int, seed: int, mesh: Mesh, rr: bool,
+        chunk: int, sort_every: int
+) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    """Host-driven sharded megakernel: the FAST single-chip engine
+    (bounce-chunked + in-program coherence re-sort, _chunked_wave) run
+    per shard under shard_map, so the sharded and single-device
+    engines cannot diverge.
+
+    Structure per chunk: ONE jitted shard_map program runs k fused
+    bounce iterations on every shard's queue; the host reads back only
+    per-shard live counts and picks the next GLOBAL bucket from their
+    max, so every shard compiles the same shapes (the same protocol as
+    the sharded wavefront loop above). dp shards samples, sp shards
+    pixels; per-lane keys depend only on (seed, absolute sample,
+    global pixel), so the sharded estimator equals single-chip.
+    """
+    from sycl_ray_tracer_tpu.models.wavefront import (
+        bucket_of as _bucket_of, interleave_waves)
+
+    dp = mesh.shape["dp"]
+    sp = mesh.shape["sp"]
+    n = width * height
+    n_local = n // sp
+    spp_local = spp // dp
+    wave_rays = int(os.environ.get("SRT_WAVE_RAYS", str(8 << 20)))
+    waves = max(1, min(spp_local, wave_rays // n_local))
+    seed_u = jnp.uint32(seed)
+    mk_first, mk_next, shrink, finish = _megakernel_programs(
+        mesh, width, height, spp, max_depth, rr, sort_every)
 
     def run_wave(s: int, w: int):
         cap = w * n_local
         i_hi0 = min(chunk, max_depth)
-        state = mk_first(scene, cam, jnp.uint32(s), jnp.int32(i_hi0),
-                         w=w, final=(i_hi0 >= max_depth))
+        state = mk_first(scene, cam, seed_u, jnp.uint32(s),
+                         jnp.int32(i_hi0), w=w, final=(i_hi0 >= max_depth))
         count_max = int(np.asarray(state[22]).max())
         i0 = chunk
         while i0 < max_depth and count_max > 0:
@@ -425,15 +462,46 @@ def _render_sharded_megakernel_hostloop(
         r = np.asarray(rays_w).astype(np.int64)
         rays = r if rays is None else rays + r
 
-    @jax.jit
-    def finish(acc):
-        a = acc.sum(axis=0).reshape(n, 3)
-        img = linear_to_gamma(a * (1.0 / spp))
-        return img.reshape(height, width, 3)
-
     tallies = np.minimum(rays.sum(axis=(0, 1)),
                          2**31 - 1).astype(np.int32)
     return finish(combined), jnp.asarray(tallies)
+
+
+@functools.lru_cache(maxsize=16)
+def _megakernel_traced_program(mesh: Mesh, width: int, height: int,
+                               spp: int, max_depth: int, rr: bool):
+    """The traced (unchunked) sharded megakernel for one configuration,
+    built once per process (see _wavefront_programs)."""
+    spp_local = spp // mesh.shape["dp"]
+
+    def shard_fn(scene, cam, lane, seed):
+        dpi = jax.lax.axis_index("dp")
+        px = (lane % jnp.uint32(width)).astype(jnp.int32)
+        py = (lane // jnp.uint32(width)).astype(jnp.int32)
+        accum, rays = accumulate_megakernel(
+            scene, cam, px, py, lane,
+            spp=spp_local, max_depth=max_depth, seed=seed,
+            sample_offset=dpi * spp_local, rr=rr)
+        accum = jax.lax.psum(accum, "dp")
+        rays = jax.lax.psum(rays, ("dp", "sp"))
+        return accum, rays
+
+    # check_vma=False: the queue/accumulator carries are materialized
+    # inside the shard, so their varying-axis types can't be inferred.
+    mapped = jax.shard_map(
+        shard_fn, mesh=mesh,
+        in_specs=(P(), P(), P("sp"), P()),
+        out_specs=(P("sp"), P()),
+        check_vma=False,
+    )
+
+    @jax.jit
+    def run(scene, cam, lane, seed):
+        accum, rays = mapped(scene, cam, lane, seed)
+        img = linear_to_gamma(accum * (1.0 / spp))
+        return img.reshape(height, width, 3), rays
+
+    return run
 
 
 def render_sharded(scene, cam: Camera, *, width: int, height: int,
@@ -452,6 +520,7 @@ def render_sharded(scene, cam: Camera, *, width: int, height: int,
     (accumulate_megakernel)."""
     if mesh is None:
         mesh = make_mesh()
+    scene = replicate(scene, mesh)
     dp = mesh.shape["dp"]
     sp = mesh.shape["sp"]
     n = width * height
@@ -466,41 +535,13 @@ def render_sharded(scene, cam: Camera, *, width: int, height: int,
     if renderer != "megakernel":
         raise ValueError(f"unknown renderer {renderer!r}")
     from sycl_ray_tracer_tpu.models.megakernel import mk_cadence
-    chunk, sort_every, _ = mk_cadence(scene, max_depth)
+    chunk, sort_every = mk_cadence()
     if chunk > 0 and max_depth >= 1:
         return _render_sharded_megakernel_hostloop(
             scene, cam, width=width, height=height, spp=spp,
             max_depth=max_depth, seed=seed, mesh=mesh, rr=rr,
             chunk=chunk, sort_every=sort_every)
-    spp_local = spp // dp
-    accumulate = accumulate_megakernel
-
-    def shard_fn(scene, cam, lane):
-        dpi = jax.lax.axis_index("dp")
-        px = (lane % jnp.uint32(width)).astype(jnp.int32)
-        py = (lane // jnp.uint32(width)).astype(jnp.int32)
-        accum, rays = accumulate(
-            scene, cam, px, py, lane,
-            spp=spp_local, max_depth=max_depth, seed=seed,
-            sample_offset=dpi * spp_local, rr=rr)
-        accum = jax.lax.psum(accum, "dp")
-        rays = jax.lax.psum(rays, ("dp", "sp"))
-        return accum, rays
-
-    lane = jnp.arange(n, dtype=jnp.uint32)
-    # check_vma=False: the queue/accumulator carries are materialized
-    # inside the shard, so their varying-axis types can't be inferred.
-    mapped = jax.shard_map(
-        shard_fn, mesh=mesh,
-        in_specs=(P(), P(), P("sp")),
-        out_specs=(P("sp"), P()),
-        check_vma=False,
-    )
-
-    @functools.partial(jax.jit, static_argnums=())
-    def run(scene, cam, lane):
-        accum, rays = mapped(scene, cam, lane)
-        img = linear_to_gamma(accum * (1.0 / spp))
-        return img.reshape(height, width, 3), rays
-
-    return run(scene, cam, lane)
+    run = _megakernel_traced_program(mesh, width, height, spp, max_depth,
+                                     rr)
+    return run(scene, cam, jnp.arange(n, dtype=jnp.uint32),
+               jnp.uint32(seed))

@@ -167,7 +167,7 @@ def dielectric_scene_glb(subdiv=1) -> bytes:
 
 def textured_scene_glb() -> bytes:
     """Diffuse quad with a checkerboard baseColorTexture."""
-    from PIL import Image
+    from sycl_ray_tracer_tpu.utils.image_io import encode_png
 
     b = GlbBuilder()
     check = np.zeros((64, 64, 4), np.uint8)
@@ -176,9 +176,7 @@ def textured_scene_glb() -> bytes:
     m = ((xx // 8) + (yy // 8)) % 2 == 0
     check[m] = [255, 40, 40, 255]
     check[~m] = [40, 40, 255, 255]
-    buf = io.BytesIO()
-    Image.fromarray(check, "RGBA").save(buf, format="PNG")
-    tex = b.add_texture_png(buf.getvalue())
+    tex = b.add_texture_png(encode_png(check))
 
     mat = b.add_material(base_color=(1, 1, 1), metallic=0.0,
                          base_color_texture=tex, name="checker")
@@ -195,14 +193,13 @@ def _quat_from_euler_x(rx: float):
 
 
 def instanced_scene_glb(r: int = 1000, seed: int = 5) -> bytes:
-    """Instance-heavy fixture (round-4 VERDICT #6): r glTF NODES all
+    """Instance-heavy fixture: r glTF NODES all
     referencing ONE 12-triangle cube mesh, scattered on a grid with
     per-node TRS — the minecraft-style workload the reference handles
     with one shared Embree BLAS + per-instance transforms
     (scene.cpp:435-439, 487-493). Our ingest bakes every instance to
-    world space, so this scene measures the R x geometry/BVH/HBM
-    blow-up (tools/probe_instancing.py) and exercises the pre-OOM
-    guard in build_device_scene."""
+    world space, so this scene measures the R x geometry/BVH memory
+    blow-up and exercises the pre-OOM guard in build_device_scene."""
     rs = np.random.RandomState(seed)
     b = GlbBuilder()
     floor_m = b.add_material(base_color=(0.55, 0.55, 0.55),

@@ -1,7 +1,7 @@
 """Binary glTF (.glb) ingest -> flat host-side scene arrays.
 
 Replaces the reference's tiny_gltf + Embree instancing pipeline
-(scene.cpp:54-510). Differences by design, for a TPU target:
+(scene.cpp:54-510). Differences by design:
 
 - GLB is parsed directly (length-prefixed JSON + BIN container); no C++
   JSON/gltf dependency is needed for ingest correctness. A native C++
@@ -10,8 +10,8 @@ Replaces the reference's tiny_gltf + Embree instancing pipeline
   transformed to world space at load (the reference instead builds
   Embree BLAS-per-primitive + TLAS-of-instances, scene.cpp:404-439,
   487-507, and transforms in-kernel). Flat world-space triangles remove
-  a level of indirection from the traversal inner loop, which matters
-  far more on a vector machine than the memory it costs.
+  a level of indirection from the traversal inner loop, at the cost
+  of R x geometry memory for R instances.
 - Shading normals are transformed by transpose(inverse(mat3(M))) exactly
   like the reference's GeometryData.obj_to_world (scene.cpp:502).
 
@@ -235,21 +235,20 @@ def decode_image_bytes(raw: bytes) -> np.ndarray:
     average of black+white is 128; the correct linear average encodes
     to 188). Shared by the Python and native ingest paths so they stay
     byte-identical (tests/test_native.py)."""
-    from PIL import Image
+    from sycl_ray_tracer_tpu.utils.image_io import (decode_image,
+                                                    resize_bilinear)
 
-    img = Image.open(io.BytesIO(raw)).convert("RGBA")
-    if img.size == (TEX_RES, TEX_RES):
-        return np.asarray(img, dtype=np.uint8)
-    a = np.asarray(img, np.float32) / 255.0
+    img = decode_image(raw)
+    if img.shape[:2] == (TEX_RES, TEX_RES):
+        return img
+    a = img.astype(np.float32) / 255.0
     rgb = a[..., :3]
     lin = np.where(rgb <= 0.04045, rgb / 12.92,
                    ((rgb + 0.055) / 1.055) ** 2.4)
     chans = []
     for c in range(4):
         src = lin[..., c] if c < 3 else a[..., 3]
-        ch = Image.fromarray(np.ascontiguousarray(src), mode="F")
-        ch = ch.resize((TEX_RES, TEX_RES), Image.BILINEAR)
-        chans.append(np.asarray(ch, np.float32))
+        chans.append(resize_bilinear(src, TEX_RES, TEX_RES))
     out = np.stack(chans, axis=-1)
     rgbo = np.clip(out[..., :3], 0.0, 1.0)
     srgb = np.where(rgbo <= 0.0031308, rgbo * 12.92,

@@ -1,18 +1,15 @@
-"""Shared-BLAS instancing ingest (round-5 VERDICT #6).
+"""Instance-preserving glb ingest.
 
 The default ingest (utils/gltf.py) BAKES every glTF instance to world
-space — R instances of one mesh cost R x geometry in HBM (measured
-540-910 B/tri, tools/probe_instancing.py). The reference instead
-shares one Embree BLAS per primitive and instances it per node
-transform (/root/reference/src/scene.cpp:435-439, 487-493).
+space — R instances of one mesh cost R x geometry in device memory.
+The reference instead shares one Embree BLAS per primitive and
+instances it per node transform (scene.cpp:435-439, 487-493).
 
-This module is the TPU-native equivalent: parse the glb into UNIQUE
-primitives (local space) + an instance list (primitive id, world
-transform). models/instanced.py then builds ONE local BVH per unique
-primitive and a global tree whose per-instance subtrees carry only
-transformed NODE BOXES — leaf geometry, Woop/MT tiles and shading
-rows stay per-unique-triangle, and the kernel transforms the RAYS
-into instance space at drain time (traverse_pallas5 itf mode).
+This module parses the glb into UNIQUE primitives (local space) + an
+instance list (primitive id, world transform), the input a two-level
+(TLAS over shared BLAS) traversal would take. Today every renderer
+reads baked scenes, so `bake()` turns it into the utils/gltf.py
+representation, bit-identical to the default loader.
 
 Reuses the container/accessor/material machinery of utils/gltf.py —
 the parsing contract (and its documented deviations) is identical.
@@ -62,8 +59,7 @@ class InstancedHostScene:
                        for p in self.inst_prim))
 
     def bake(self) -> "_g.HostScene":
-        """World-space bake (the utils/gltf.py representation) — the
-        CPU/oracle fallback and the parity reference for tests."""
+        """World-space bake (the utils/gltf.py representation)."""
         tv, tn, tu, tm = [], [], [], []
         for p, m4 in zip(self.inst_prim, self.inst_mat):
             pr = self.prims[p]

@@ -2,9 +2,9 @@
 
 The native core handles the heavy ingest (GLB/JSON/accessors/transform
 baking/material classification — the tiny_gltf-equivalent layer); image
-decoding stays in Python/PIL. Falls back silently to the pure-Python
-loader when the library hasn't been built (SRT_NATIVE=0 disables it
-explicitly). Auto-builds via `make -C native` on first use when a
+decoding stays in Python (utils/image_io.py). Falls back silently to
+the pure-Python loader when the library hasn't been built (SRT_NATIVE=0
+disables it explicitly). Auto-builds via `make -C native` on first use when a
 compiler is available.
 """
 
@@ -150,7 +150,7 @@ def load_glb_native(data: bytes, global_scale=(1.0, 1.0, 1.0)):
         lib.srt_scene_info(handle, sky, pos, dirn,
                            ctypes.byref(focal), ctypes.byref(has_cam))
 
-        # image decode via PIL (native hands back raw embedded bytes);
+        # image decode in Python (native hands back raw embedded bytes);
         # shared sRGB-aware resize keeps both ingest paths identical
         n_img = lib.srt_num_images(handle)
         if n_img:

@@ -10,8 +10,6 @@ exercises ingest too.
 
 from __future__ import annotations
 
-import io
-
 import numpy as np
 
 from sycl_ray_tracer_tpu.utils.glb_writer import GlbBuilder
@@ -39,9 +37,8 @@ def _texture_png(base_rgb, kind: str, seed: int, res: int = 512) -> bytes:
     The reference's Sponza is heavily textured (image_manager.hpp
     uploads every glTF image; material.hpp:45-53 samples base color per
     bounce), so the benchmark scenes carry real images too — the
-    in-loop atlas gather is part of every measured number (round-3
-    VERDICT #2)."""
-    from PIL import Image
+    in-loop atlas gather is part of every measured number."""
+    from sycl_ray_tracer_tpu.utils.image_io import encode_png
 
     rs = np.random.RandomState(seed)
     base = np.asarray(base_rgb, np.float32)
@@ -70,9 +67,7 @@ def _texture_png(base_rgb, kind: str, seed: int, res: int = 512) -> bytes:
     img = np.concatenate(
         [(rgb * 255).astype(np.uint8),
          np.full((res, res, 1), 255, np.uint8)], axis=-1)
-    buf = io.BytesIO()
-    Image.fromarray(img, "RGBA").save(buf, format="PNG")
-    return buf.getvalue()
+    return encode_png(img)
 
 
 def _cylinder(radius, height, sides, segs):
@@ -251,9 +246,9 @@ def minecraft_like_glb(n: int = 360, seed: int = 3) -> bytes:
     """Voxel terrain: n x n columns of unit boxes (12 tris each) with a
     water plane, glass blocks, and glowstone lamps. The default n=360
     (~2.1M tris) matches the reference minecraft.glb's
-    bigger-than-Sponza scale and exceeds the single-tree VMEM limit, so
-    it exercises the treelet path (ops/treelets.py); n=72 (~82K tris)
-    is the small in-VMEM variant used when a quick voxel scene is
+    bigger-than-Sponza scale: its node table (~86 MB) outgrows the
+    card's 50 MB L2, where sponza_proc's (~11 MB) fits. n=72 (~82K
+    tris) is the small variant used when a quick voxel scene is
     enough."""
     rs = np.random.RandomState(seed)
     b = GlbBuilder()

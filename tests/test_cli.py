@@ -11,7 +11,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _run(args, timeout=600):
-    env = dict(os.environ, SRT_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     if "xla_force_host_platform_device_count" not in env.get("XLA_FLAGS", ""):
         env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") +
                             " --xla_force_host_platform_device_count=8").strip()
@@ -40,7 +40,7 @@ def test_cli_missing_scene_is_clean():
 
 def test_cli_rr_with_devices(tmp_path):
     # regression: --rr used to crash under --devices > 1 because
-    # render_sharded had no rr parameter (ADVICE.md round 1)
+    # render_sharded had no rr parameter
     out_png = tmp_path / "out.png"
     r = _run(["triangle", "--rr", "--devices", "2", "-s", "2", "-d", "3",
               "--width", "32", "--height", "32", "-o", str(out_png)])

@@ -9,7 +9,7 @@ from sycl_ray_tracer_tpu.utils.gltf import (MAT_DIELECTRIC, MAT_DIFFUSE,
                                             MAT_METALLIC, load_glb)
 from sycl_ray_tracer_tpu.utils.glb_writer import GlbBuilder
 
-from tests import scenes
+from sycl_ray_tracer_tpu.utils import fixtures as scenes
 
 REF_ASSETS = "/root/reference/assets"
 

@@ -6,7 +6,7 @@ import pytest
 from sycl_ray_tracer_tpu.utils import native_loader
 from sycl_ray_tracer_tpu.utils.gltf import load_glb
 
-from tests import scenes
+from sycl_ray_tracer_tpu.utils import fixtures as scenes
 
 pytestmark = pytest.mark.skipif(
     not native_loader.available(),
@@ -62,7 +62,7 @@ def test_procedural_sponza():
 
 
 def test_truncated_glb_is_rejected_not_oob():
-    # regression (ADVICE round 1): a truncated BIN chunk used to pass
+    # regression: a truncated BIN chunk used to pass
     # the start-offset-only check and read out of bounds. The native
     # loader must now reject it (accessor range validated against the
     # BIN length) instead of segfaulting.

@@ -1,14 +1,11 @@
-"""Native binned-SAH BVH8 builder: invariants, kernel equivalence via
-interpret mode, and the end-to-end remap path through intersect_scene."""
+"""Native binned-SAH BVH8 build (host code kept for a walk over the
+SAH tree): structural invariants of the object-split, wide-node and
+spatial-split builds."""
 
 import numpy as np
-import jax
-import jax.numpy as jnp
 import pytest
 
-from sycl_ray_tracer_tpu.ops import sah, wbvh
-from sycl_ray_tracer_tpu.ops.intersect import intersect_brute_np
-from sycl_ray_tracer_tpu.ops.vec import V3
+from sycl_ray_tracer_tpu.ops import sah
 
 pytestmark = pytest.mark.skipif(
     not sah.available(),
@@ -38,64 +35,12 @@ def test_sah_single_leaf(rs):
     assert b.num_leaves == 1
 
 
-def test_sah_traversal_matches_brute(rs):
-    tri = _random_tris(rs, 2500)
-    k = 8
-    b = sah.build_sah(tri, k)
-    ct, lt = wbvh.pack_tiles_np(b.children, b.child_ids,
-                                sah.leaf_rows(tri, b.order, k), k)
-
-    import sycl_ray_tracer_tpu.ops.traverse_pallas2 as TP2
-    from jax.experimental import pallas as pl
-
-    r = 1500
-    o_np = rs.uniform(-8, 8, (r, 3)).astype(np.float32)
-    d_np = rs.uniform(-1, 1, (r, 3)).astype(np.float32)
-    o = V3(*(jnp.asarray(o_np[:, i]) for i in range(3)))
-    d = V3(*(jnp.asarray(d_np[:, i]) for i in range(3)))
-
-    orig = pl.pallas_call
-    TP2.pl.pallas_call = lambda *a, **kw: orig(
-        *a, **{**kw, "interpret": True})
-    try:
-        hit = TP2.traverse_packets2(jnp.asarray(ct), jnp.asarray(lt),
-                                    b.num_internal, k, o, d, rows=2)
-    finally:
-        TP2.pl.pallas_call = orig
-
-    t_b, id_b, _, _ = intersect_brute_np(o_np, d_np, tri)
-    slot = np.asarray(hit.tri)
-    got = np.where(slot >= 0, b.order[np.maximum(slot, 0)], -1)
-    assert ((got >= 0) == (id_b >= 0)).all()
-    both = got >= 0
-    assert (got[both] == id_b[both]).all()
-    assert np.allclose(np.asarray(hit.t)[both], t_b[both],
-                       rtol=1e-5, atol=1e-6)
-
-
-def test_scene_remap_is_consistent(rs):
-    """DeviceScene's SAH remap must translate kernel hit slots into the
-    Morton-slot space all shading arrays use."""
-    from sycl_ray_tracer_tpu.models.scene import build_device_scene
-    from sycl_ray_tracer_tpu.utils.gltf import load_glb
-    from tests import scenes
-
-    host = load_glb(scenes.cube_scene_glb())
-    scene = build_device_scene(host)
-    assert scene.has_sah
-    remap = np.asarray(scene.bvh_remap)
-    valid = remap[remap >= 0]
-    # a permutation of the real triangle slots
-    assert len(np.unique(valid)) == host.num_triangles
-    assert valid.max() < scene.tri_n.shape[0]
-
-
 def test_sah_width_collapse(rs):
     """Probe-only wide-node fanouts (srt_bvh_build3, W != 8) must obey
     the same containment invariants, and — since the DP collapse only
     re-partitions the binary tree — produce the SAME leaf set as W=8
     (leaves are immutable under the collapse; only internal grouping
-    changes). Gates tools/probe_tree_width.py's comparability claim."""
+    changes)."""
     tri = _random_tris(rs, 4000)
     k = 8
 
@@ -119,9 +64,9 @@ def test_sah_width_collapse(rs):
 
 
 def test_sbvh_spatial_splits_parity(rs):
-    """SBVH (spatial=True) duplicates clipped references; traversal
-    through the split tree must still match brute force exactly.
-    Scene mixes small tris with large straddling ones so splits fire."""
+    """SBVH (spatial=True) duplicates clipped references; the split tree
+    must still reach every triangle and keep its boxes nested. Scene
+    mixes small tris with large straddling ones so splits fire."""
     small = _random_tris(rs, 1200)
     big = (rs.uniform(-5, 5, (80, 3, 3)) * 2.0).astype(np.float32)
     tri = np.concatenate([small, big]).astype(np.float32)
@@ -132,34 +77,3 @@ def test_sbvh_spatial_splits_parity(rs):
     # duplicated ids present but every triangle still reachable
     seen = b.order[b.order >= 0]
     assert len(np.unique(seen)) == tri.shape[0]
-
-    ct, lt = wbvh.pack_tiles_np(b.children, b.child_ids,
-                                sah.leaf_rows(tri, b.order, k), k)
-    import sycl_ray_tracer_tpu.ops.traverse_pallas2 as TP2
-    from jax.experimental import pallas as pl
-
-    r = 1000
-    o_np = rs.uniform(-8, 8, (r, 3)).astype(np.float32)
-    d_np = rs.uniform(-1, 1, (r, 3)).astype(np.float32)
-    o = V3(*(jnp.asarray(o_np[:, i]) for i in range(3)))
-    d = V3(*(jnp.asarray(d_np[:, i]) for i in range(3)))
-
-    orig = pl.pallas_call
-    TP2.pl.pallas_call = lambda *a, **kw: orig(
-        *a, **{**kw, "interpret": True})
-    try:
-        hit = TP2.traverse_packets2(jnp.asarray(ct), jnp.asarray(lt),
-                                    b.num_internal, k, o, d, rows=2)
-    finally:
-        TP2.pl.pallas_call = orig
-
-    t_b, id_b, _, _ = intersect_brute_np(o_np, d_np, tri)
-    slot = np.asarray(hit.tri)
-    got = np.where(slot >= 0, b.order[np.maximum(slot, 0)], -1)
-    assert ((got >= 0) == (id_b >= 0)).all()
-    both = got >= 0
-    assert (got[both] == id_b[both]).all()
-    # t compared loosely: the big straddling tris amplify f32
-    # Moller-Trumbore rounding (hit ids above are compared exactly)
-    assert np.allclose(np.asarray(hit.t)[both], t_b[both],
-                       rtol=2e-4, atol=1e-5)
